@@ -1,0 +1,123 @@
+"""Port surface: unported flags, the backend registry, the CLI, import
+hygiene and ``chip_smoke.py``'s constants.
+
+Unported flags must fail with ``BackendCapabilityError`` before any work;
+the CLI prints the reference's result line; ``repro_torch`` imports
+neither ``jax`` nor ``repro``; ``chip_smoke.py``'s expected results are
+the JAX package's.
+"""
+import json
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+import oracle
+from repro.core import graph as ref_graph
+from repro.core import solver as ref_solver
+from repro_torch.core import backend, graph, solver, telemetry
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+def _port_graph(g):
+    return graph.Graph(g.n, g.adj.copy(), g.name)
+
+
+@pytest.mark.parametrize("kw,item", [
+    (dict(mode="bloom"), "A7"), (dict(use_mmw=True), "B4"),
+    (dict(use_simplicial=True), "B3"), (dict(schedule="while"), "A3"),
+    (dict(lanes=2), "A8"), (dict(shards=2), "A10"),
+    (dict(heuristics=1), "A9"), (dict(backend="cuda"), "CUDA device")])
+def test_unported_flags_fail_before_work(kw, item):
+    g = _port_graph(oracle.make_graph("petersen"))
+    tr = telemetry.Tracker()
+    with pytest.raises(backend.BackendCapabilityError, match=item):
+        solver.solve(g, device="cpu", tracker=tr, **kw)
+    assert tr.snapshot()["counters"] == {}
+
+
+def test_registry_surface():
+    assert backend.BACKENDS == ("torch", "cuda")
+    assert backend.capability_table() == {
+        "sort_dedup": ("torch", "cuda"),
+        "wavefront_expand": ("torch", "cuda")}
+    with pytest.raises(backend.BackendCapabilityError, match="unknown op"):
+        backend.get_op("mmw_bound", "torch")
+    with pytest.raises(backend.BackendCapabilityError, match="backend"):
+        backend.get_op("wavefront_expand", "pallas")
+
+
+def test_default_device_needs_a_card():
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        solver.solve(_port_graph(oracle.make_graph("petersen")))
+
+
+def _run(code_or_args, module=False):
+    cmd = [sys.executable] + (["-m"] + code_or_args if module
+                              else ["-c", code_or_args])
+    return subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=120,
+                          env={"PYTHONPATH": str(ROOT / "src"),
+                               "PATH": "/usr/bin:/bin",
+                               "JAX_PLATFORMS": "cpu",
+                               "OMP_NUM_THREADS": "1"})
+
+
+def test_cli_smoke_matches_reference_line():
+    out = _run(["repro_torch.launch.solve", "--graph", "queen5_5",
+                "--device", "cpu"], module=True)
+    assert out.returncode == 0, out.stderr
+    assert ("[solve] treewidth=18 exact=True lb=12 ub=18 "
+            "states_expanded=2279") in out.stdout
+    out = _run(["repro_torch.launch.solve", "--graph", "petersen",
+                "--device", "cpu", "--reconstruct"], module=True)
+    assert out.returncode == 0, out.stderr
+    assert "elimination order verified: width=4" in out.stdout
+    out = _run(["repro_torch.launch.solve", "--graph", "petersen",
+                "--device", "cpu", "--mmw"], module=True)
+    assert out.returncode == 2 and "B4" in out.stderr
+
+
+def test_import_hygiene_no_jax_no_repro():
+    code = (
+        "import sys, json\n"
+        "import repro_torch, repro_torch.core.solver, "
+        "repro_torch.core.engine, repro_torch.kernels.wavefront, "
+        "repro_torch.kernels.build, repro_torch.launch.solve\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+        "print(json.dumps(bad))\n")
+    out = _run(code)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_chip_smoke_imports_nothing_of_jax_or_repro():
+    src = (ROOT / "chip_smoke.py").read_text()
+    for line in src.splitlines():
+        words = line.split()
+        if words[:1] in (["import"], ["from"]):
+            mod = words[1].split(".")[0].rstrip(",")
+            assert mod not in ("jax", "repro"), line
+
+
+@pytest.mark.parametrize("name", ["petersen", "queen5_5", "myciel4"])
+def test_chip_smoke_expected_values_come_from_reference(name):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    want = chip_smoke.EXPECTED[name]
+    got = ref_solver.solve(ref_graph.REGISTRY[name]())
+    assert (got.width, got.exact, got.lb, got.ub, got.expanded) == (
+        want["width"], want["exact"], want["lb"], want["ub"],
+        want["expanded"])
+    assert got.per_k == {want["block"]: {
+        k: {"feasible": f, "inexact": i, "expanded": e}
+        for k, f, i, e in want["per_k"]}}

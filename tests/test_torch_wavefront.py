@@ -1,0 +1,186 @@
+"""Port parity: the wavefront op and the CUDA kernel module's wrapper.
+
+The port's ``wavefront_expand`` (the ``torch`` backend op, and the kernel
+wrapper's CPU path ``wavefront_ref``) must be bit-identical to
+``repro.core.expand.wavefront_expand`` and to the Pallas kernel in
+interpret mode, and agree with the DFS oracle.  The CUDA kernel itself
+runs only on a card: its case skips here and runs through
+``chip_smoke.py`` there.
+"""
+import random
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from repro.core import bitset as ref_bitset
+from repro.core import expand as ref_expand
+from repro.core import graph as ref_graph
+from repro.kernels.wavefront import wavefront_expand as pallas_wavefront
+from repro_torch.core import backend, bitset, components, expand
+from repro_torch.kernels import wavefront as kernel_mod
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """Test workers run side by side; one torch thread each keeps them from
+    oversubscribing the CPU (the results do not depend on it)."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _case(n, n_states, seed, p=0.3, high_bit=False):
+    rng = random.Random(seed)
+    g = ref_graph.gnp(n, p, seed)
+    ss = [set(rng.sample(range(n), rng.randint(0, max(0, n // 2))))
+          for _ in range(n_states)]
+    if high_bit:
+        top = [v for v in (31, 63) if v < n]
+        for s in ss[::2]:
+            s.update(top)
+    states = ref_bitset.np_pack(ss, n)
+    valid = np.ones((n_states,), dtype=bool)
+    allowed = np.asarray(ref_bitset.full(n))
+    return g, ss, g.packed(), states, valid, allowed
+
+
+def _ref(adj, states, valid, k, allowed, n):
+    c, f = ref_expand.wavefront_expand(jnp.asarray(adj), jnp.asarray(states),
+                                       jnp.asarray(valid), jnp.int32(k),
+                                       jnp.asarray(allowed), n=n)
+    return np.asarray(c), np.asarray(f)
+
+
+def _port(fn, adj, states, valid, k, allowed, n):
+    c, f = fn(bitset.to_words(adj, "cpu"), bitset.to_words(states, "cpu"),
+              torch.from_numpy(valid), k, bitset.to_words(allowed, "cpu"),
+              n=n)
+    assert c.dtype == torch.int32 and f.dtype == torch.bool
+    return bitset.from_words(c), f.numpy()
+
+
+PORT_FNS = {"torch_op": expand.wavefront_expand,
+            "kernel_cpu_path": kernel_mod.wavefront_expand,
+            "registry_torch": backend.get_op("wavefront_expand", "torch")}
+
+
+@pytest.mark.parametrize("fn", list(PORT_FNS), ids=list(PORT_FNS))
+@pytest.mark.parametrize("n", [3, 17, 31, 32, 33, 48, 64, 70])
+def test_matches_reference_shape_sweep(n, fn):
+    _, _, adj, states, valid, allowed = _case(n, 6, seed=n, high_bit=True)
+    for k in (1, n // 4, n // 2):
+        gc, gf = _port(PORT_FNS[fn], adj, states, valid, k, allowed, n)
+        wc, wf = _ref(adj, states, valid, k, allowed, n)
+        np.testing.assert_array_equal(gc, wc)
+        np.testing.assert_array_equal(gf, wf)
+
+
+@pytest.mark.parametrize("n", [3, 17, 33])
+def test_matches_pallas_kernel_in_interpret_mode(n):
+    _, _, adj, states, valid, allowed = _case(n, 5, seed=n + 1)
+    valid[1] = False
+    pc, pf = pallas_wavefront(jnp.asarray(adj), jnp.asarray(states),
+                              jnp.asarray(valid), jnp.int32(n // 3),
+                              jnp.asarray(allowed), n=n, block=2,
+                              interpret=True)
+    gc, gf = _port(kernel_mod.wavefront_expand, adj, states, valid, n // 3,
+                   allowed, n)
+    np.testing.assert_array_equal(gc, np.asarray(pc))
+    np.testing.assert_array_equal(gf, np.asarray(pf))
+
+
+@pytest.mark.parametrize("n_states", [1, 2, 5, 8, 13])
+def test_batch_sweep_with_invalid_rows_and_allowed_mask(n_states):
+    n = 16
+    _, _, adj, states, valid, _ = _case(n, n_states, seed=7)
+    valid[::3] = False
+    allowed = ref_bitset.np_allowed(n, [0, 5, 15])
+    gc, gf = _port(kernel_mod.wavefront_expand, adj, states, valid, 4,
+                   allowed, n)
+    wc, wf = _ref(adj, states, valid, 4, allowed, n)
+    assert gc.shape == (n_states, n, bitset.n_words(n))
+    np.testing.assert_array_equal(gc, wc)
+    np.testing.assert_array_equal(gf, wf)
+    assert not gf[::3].any()
+
+
+def test_feasibility_matches_dfs_oracle():
+    n = 14
+    g, ss, adj, states, valid, allowed = _case(n, 5, seed=3, p=0.4)
+    k = 4
+    _, feas = _port(kernel_mod.wavefront_expand, adj, states, valid, k,
+                    allowed, n)
+    adjb = [list(map(bool, row)) for row in g.adj]
+    for b, s in enumerate(ss):
+        for v in range(n):
+            want = (v not in s) and ref_expand.degree_oracle(adjb, s, v) <= k
+            assert bool(feas[b, v]) == want, (b, v, s)
+            assert (expand.degree_oracle(adjb, s, v)
+                    == ref_expand.degree_oracle(adjb, s, v))
+
+
+@pytest.mark.parametrize("n", [5, 20, 33])
+def test_components_match_reference(n):
+    from repro.core import components as ref_components
+    _, _, adj, states, _, _ = _case(n, 4, seed=11 + n, high_bit=True)
+    z = bitset.from_words(components.closure(bitset.to_words(adj, "cpu"),
+                                             bitset.to_words(states, "cpu"),
+                                             n))
+    deg, reach = components.eliminated_degrees(
+        bitset.to_words(adj, "cpu"), bitset.to_words(states, "cpu"), n)
+    for b in range(states.shape[0]):
+        s = jnp.asarray(states[b])
+        a = jnp.asarray(adj)
+        np.testing.assert_array_equal(
+            z[b], np.asarray(ref_components.closure(a, s, n)))
+        wdeg, wreach = ref_components.eliminated_degrees(a, s, n)
+        np.testing.assert_array_equal(deg[b].numpy(), np.asarray(wdeg))
+        np.testing.assert_array_equal(bitset.from_words(reach[b]),
+                                      np.asarray(wreach))
+
+
+def test_wrapper_rejects_bad_inputs_and_unported_flags():
+    n = 40
+    _, _, adj, states, valid, allowed = _case(n, 3, seed=1)
+    a, s = bitset.to_words(adj, "cpu"), bitset.to_words(states, "cpu")
+    v, al = torch.from_numpy(valid), bitset.to_words(allowed, "cpu")
+    with pytest.raises(TypeError, match="int32"):
+        kernel_mod.wavefront_expand(a.to(torch.int64), s, v, 3, al, n=n)
+    with pytest.raises(ValueError, match="expected adj"):
+        kernel_mod.wavefront_expand(a[:-1], s, v, 3, al, n=n)
+    strided = torch.zeros((2, 3), dtype=torch.int32).t()
+    assert not strided.is_contiguous()
+    with pytest.raises(ValueError, match="contiguous"):
+        kernel_mod.wavefront_expand(a, strided, v, 3, al, n=n)
+    with pytest.raises(backend.BackendCapabilityError, match="B4"):
+        kernel_mod.wavefront_expand(a, s, v, 3, al, n=n, use_mmw=True)
+    with pytest.raises(backend.BackendCapabilityError, match="doubling"):
+        kernel_mod.wavefront_expand(a, s, v, 3, al, n=n, schedule="while")
+
+
+def test_cpu_path_does_not_count_launches():
+    n = 10
+    _, _, adj, states, valid, allowed = _case(n, 3, seed=2)
+    before = kernel_mod.ops.LAUNCHES
+    _port(kernel_mod.wavefront_expand, adj, states, valid, 3, allowed, n)
+    assert kernel_mod.ops.LAUNCHES == before
+
+
+def test_cuda_kernel_matches_plain_version():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the wavefront kernel is CUDA C++ "
+                    "for sm_90a with no CPU mode (chip_smoke.py runs it)")
+    for n in (3, 17, 31, 32, 33, 36, 48, 49, 64, 100):
+        _, _, adj, states, valid, allowed = _case(n, 37, seed=n,
+                                                  high_bit=True)
+        valid[::4] = False
+        dev = "cuda"
+        args = (bitset.to_words(adj, dev), bitset.to_words(states, dev),
+                torch.from_numpy(valid).to(dev), n // 3,
+                bitset.to_words(allowed, dev))
+        gc, gf = kernel_mod.wavefront_expand(*args, n=n)
+        wc, wf = kernel_mod.wavefront_ref(*args, n=n)
+        assert torch.equal(gc, wc) and torch.equal(gf, wf)
