@@ -10,9 +10,19 @@ backends are:
 Capability table:
 
   op                 torch   cuda
-  wavefront_expand     ✓      ✓     cuda: fused CUDA kernel (sm_90a)
+  wavefront_expand     ✓      ✓     cuda: fused CUDA kernel, both pruning
+                                     rules inside (sm_90a)
+  expand_degrees       ✓      ✓     degrees only (no reach output)
+  mmw_bound            ✓      ✓
+  simplicial_mask      ✓      —     cuda: the rule exists only fused
+                                     inside wavefront_expand
   sort_dedup           ✓      ✓*    *torch.sort on both; a hand-written
                                      sort is queued (ROADMAP B2)
+  bloom_query_insert   ✓      ✓     torch: byte per bit, whole batch
+                                     queried first; cuda: packed words,
+                                     row-order inserts
+  bloom_make_filter    ✓      ✓     torch: uint8 per bit; cuda: packed
+                                     int32 words
 
 What the port does not do yet fails in ``validate`` with a
 ``BackendCapabilityError`` naming the ROADMAP item that adds it, before
@@ -28,7 +38,7 @@ import torch
 
 BACKENDS: Tuple[str, ...] = ("torch", "cuda")
 
-DEDUP_MODES: Tuple[str, ...] = ("sort",)
+DEDUP_MODES: Tuple[str, ...] = ("sort", "bloom")
 
 # closure schedules ported so far (the reference's jax backend also has
 # "while", "linear" and "matmul": the Table-6 sweep)
@@ -100,8 +110,8 @@ def default_backend(device: torch.device) -> str:
 
 def validate(backend: str, *, mode: str = "sort",
              schedule: str = "doubling", use_mmw: bool = False,
-             use_simplicial: bool = False, lanes: int = 1,
-             shards: int = 1, heuristics: int = 0,
+             use_simplicial: bool = False, m_bits: Optional[int] = None,
+             lanes: int = 1, shards: int = 1, heuristics: int = 0,
              device: Optional[torch.device] = None) -> None:
     """Fail fast on configurations the port cannot run (yet)."""
     if backend not in BACKENDS:
@@ -110,19 +120,13 @@ def validate(backend: str, *, mode: str = "sort",
             f"{', '.join(BACKENDS)}")
     if mode not in DEDUP_MODES:
         raise BackendCapabilityError(
-            f"dedup mode {mode!r} is not ported; the port runs exact "
-            "sort-mode dedup (Bloom mode: ROADMAP A7, B5)")
+            f"unknown dedup mode {mode!r}; known modes: "
+            f"{', '.join(DEDUP_MODES)}")
     if schedule not in SCHEDULES:
         raise BackendCapabilityError(
             f"schedule={schedule!r} is not ported (supported: "
             f"{', '.join(SCHEDULES)}); the other closure schedules are "
             "the Table-6 sweep (ROADMAP A3)")
-    if use_mmw:
-        raise BackendCapabilityError(
-            "use_mmw is not ported (MMW pruning: ROADMAP B4)")
-    if use_simplicial:
-        raise BackendCapabilityError(
-            "use_simplicial is not ported (simplicial collapse: ROADMAP B3)")
     if lanes != 1:
         raise BackendCapabilityError(
             f"lanes={lanes}: the multi-lane engine is not ported "
@@ -135,12 +139,25 @@ def validate(backend: str, *, mode: str = "sort",
         raise BackendCapabilityError(
             f"heuristics={heuristics}: the anytime bounds engine is not "
             "ported (ROADMAP A9); run with heuristics=0")
+    if mode == "bloom" and backend == "cuda" \
+            and m_bits is not None and m_bits % 32:
+        raise BackendCapabilityError(
+            f"backend='cuda' keeps the Bloom filter bit-packed in 32-bit "
+            f"words, so m_bits must be a multiple of 32 (got {m_bits}). "
+            "Round m_bits up or use backend='torch'.")
     if backend == "cuda" and device is not None \
             and torch.device(device).type != "cuda":
         raise BackendCapabilityError(
             f"backend='cuda' runs the CUDA kernels and needs a CUDA device "
             f"(got {device}); use backend='torch' on the CPU")
     get_op("wavefront_expand", backend)
+    if use_mmw:
+        get_op("mmw_bound", backend)
+    if use_simplicial and backend == "torch":
+        # under cuda the rule exists only fused inside wavefront_expand
+        get_op("simplicial_mask", "torch")
+    if mode == "bloom":
+        get_op("bloom_query_insert", backend)
 
 
 # ------------------------------------------------------------ registrations
@@ -155,6 +172,43 @@ def _cuda_wavefront_expand():
     return wavefront_expand
 
 
+def _torch_expand_degrees():
+    from . import components
+
+    def expand_degrees(adj, states, *, n, schedule="doubling"):
+        deg, _reach = components.eliminated_degrees(adj, states, n,
+                                                    schedule=schedule)
+        return deg
+    return expand_degrees
+
+
+def _cuda_expand_degrees():
+    from repro_torch.kernels.expand import expand_degrees
+
+    def expand_degrees_op(adj, states, *, n, schedule="doubling"):
+        if schedule != "doubling":
+            raise BackendCapabilityError(
+                f"the CUDA expand kernel runs the static doubling closure; "
+                f"schedule={schedule!r} is not ported (ROADMAP A3)")
+        return expand_degrees(adj, states, n=n)
+    return expand_degrees_op
+
+
+def _torch_mmw_bound():
+    from . import mmw
+    return mmw.mmw_bound
+
+
+def _cuda_mmw_bound():
+    from repro_torch.kernels.mmw import mmw_bounds
+    return mmw_bounds
+
+
+def _torch_simplicial_mask():
+    from . import expand
+    return expand.simplicial_mask
+
+
 def _sort_dedup():
     from . import dedup
 
@@ -165,14 +219,60 @@ def _sort_dedup():
     return sort_dedup
 
 
+def _torch_bloom_query_insert():
+    from . import bloom
+    return bloom.query_and_insert
+
+
+def _cuda_bloom_query_insert():
+    from repro_torch.kernels.bloom import bloom_insert
+    return bloom_insert
+
+
+def _torch_bloom_make_filter():
+    from . import bloom
+    return bloom.make_filter
+
+
+def _cuda_bloom_make_filter():
+    from repro_torch.kernels.bloom import make_filter_words
+    return make_filter_words
+
+
 _register(
     "wavefront_expand",
-    "The fused Listing-1 inner loop: expand + feasibility -> (children, "
-    "feasible).",
+    "The fused Listing-1 inner loop: expand + feasibility + simplicial "
+    "collapse + MMW prune -> (children, feasible).",
     torch=_torch_wavefront_expand, cuda=_cuda_wavefront_expand)
+_register(
+    "expand_degrees",
+    "deg_S(v) only (no reach / children): benchmark and test surface of "
+    "the unfused expansion kernel.",
+    torch=_torch_expand_degrees, cuda=_cuda_expand_degrees)
+_register(
+    "mmw_bound",
+    "Batched minor-min-width lower bounds from precomputed reach rows.",
+    torch=_torch_mmw_bound, cuda=_cuda_mmw_bound)
+_register(
+    "simplicial_mask",
+    "Standalone simplicial-candidate mask. Under cuda the rule exists "
+    "only fused inside wavefront_expand; use backend='torch' or the fused "
+    "op.",
+    torch=_torch_simplicial_mask)
 _register(
     "sort_dedup",
     "Exact unsigned lexicographic sort + first-occurrence mask. torch.sort "
     "under both backends; a hand-written Hopper sort is queued "
     "(ROADMAP B2).",
     torch=_sort_dedup, cuda=_sort_dedup)
+_register(
+    "bloom_query_insert",
+    "Bloom-filter query-and-insert. torch: byte per bit, the whole batch "
+    "queried before it is inserted; cuda: packed words, rows inserted in "
+    "order. Identical was_new bits for batches whose rows share no probe "
+    "bits.",
+    torch=_torch_bloom_query_insert, cuda=_cuda_bloom_query_insert)
+_register(
+    "bloom_make_filter",
+    "Backend-matched empty Bloom filter of m_bits bits on ``device``.",
+    torch=_torch_bloom_make_filter, cuda=_cuda_bloom_make_filter)

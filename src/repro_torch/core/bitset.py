@@ -94,10 +94,10 @@ def pack(bits: torch.Tensor, n: int) -> torch.Tensor:
     b = b.reshape(b.shape[:-1] + (w, 32))
     shifts = torch.arange(32, dtype=torch.int64, device=bits.device)
     words = (b << shifts).sum(dim=-1)            # < 2^32, exact in int64
-    return _narrow(words)
+    return narrow(words)
 
 
-def _narrow(words64: torch.Tensor) -> torch.Tensor:
+def narrow(words64: torch.Tensor) -> torch.Tensor:
     """int64 values in [0, 2^32) -> int32 with the same low 32 bits."""
     return torch.where(words64 >= (1 << 31), words64 - (1 << 32),
                        words64).to(torch.int32)

@@ -16,6 +16,11 @@ an overflow depends on it:
   * a level that spanned several chunks (``count > blk``) gets one
     cross-chunk sort-dedup over the whole buffer.
 
+``mode="bloom"`` is the paper's dedup: each level gets a fresh filter
+(``bloom_make_filter``), every chunk's sorted-unique children are queried
+and inserted (``bloom_query_insert``) before they are appended, and the
+cross-chunk sort-dedup is skipped.
+
 ``fused_decide_launch`` / ``DispatchHandle.result()`` keep the reference's
 launch/result split; ``result()`` is the one copy of the verdict to the
 host.
@@ -29,13 +34,16 @@ from typing import Any, Callable, Optional
 import torch
 
 from . import backend as backend_lib
-from . import dedup
+from . import bloom, dedup
 from . import frontier as frontier_lib
 from . import telemetry
 
 # below this frontier size a level runs as one narrow chunk instead of a
 # full-``block``-wide one
 SMALL_BLOCK = 128
+
+# the solver's default Bloom filter size in bits (``solve(m_bits=...)``)
+DEFAULT_M_BITS = 1 << 24
 
 
 @dataclasses.dataclass
@@ -104,25 +112,32 @@ def new_out(cap: int, w: int, device) -> torch.Tensor:
 
 
 def expand_chunk(adj, states_chunk, chunk_valid, k, out, ocount, dropped,
-                 allowed, *, n, cap, block, schedule, backend):
+                 filt, allowed, *, n, cap, block, mode, use_mmw, m_bits,
+                 k_hashes, schedule, backend, use_simplicial=False):
     """Expand one chunk of states and append its deduped children to
     ``out`` (a ``new_out`` buffer).
 
-    ``ocount`` and ``dropped`` are 0-d device tensors; returns the updated
-    (out, ocount, dropped) without a host sync."""
+    ``ocount`` and ``dropped`` are 0-d device tensors; ``filt`` is the
+    level's Bloom filter (unused in sort mode).  Returns the updated
+    (out, ocount, dropped, filt) without a host sync."""
     w = adj.shape[-1]
     children, feas = backend_lib.get_op("wavefront_expand", backend)(
-        adj, states_chunk, chunk_valid, k, allowed, n=n, schedule=schedule)
+        adj, states_chunk, chunk_valid, k, allowed, n=n, schedule=schedule,
+        use_mmw=use_mmw, use_simplicial=use_simplicial)
     flat = children.reshape(block * n, w)
     fmask = feas.reshape(block * n)
     skeys, keep = backend_lib.get_op("sort_dedup", backend)(flat, fmask)
+    if mode == "bloom":
+        keep, filt = backend_lib.get_op("bloom_query_insert", backend)(
+            filt, skeys, keep, m_bits=m_bits, k_hashes=k_hashes)
     _, written, drop = dedup.compact(skeys, keep, cap, offset=ocount,
                                      out=out)
-    return out, ocount + written, dropped + drop
+    return out, ocount + written, dropped + drop, filt
 
 
-def chunk_sweep(adj, allowed, k, states, count: int, blk, *, n, cap,
-                schedule, backend):
+def chunk_sweep(adj, allowed, k, states, count: int, blk, *, n, cap, mode,
+                use_mmw, m_bits, k_hashes, schedule, backend,
+                use_simplicial):
     """Expand ``count`` rows of ``states`` in ``blk``-row chunks.
 
     Returns (out (cap, W), ocount, dropped) with the counts as 0-d
@@ -132,14 +147,20 @@ def chunk_sweep(adj, allowed, k, states, count: int, blk, *, n, cap,
     out = new_out(cap, w, device)
     ocount = torch.zeros((), dtype=torch.int64, device=device)
     dropped = torch.zeros((), dtype=torch.int64, device=device)
+    filt = None
+    if mode == "bloom":
+        filt = backend_lib.get_op("bloom_make_filter", backend)(
+            m_bits, device=device)
     rows = torch.arange(blk, dtype=torch.int64, device=device)
     for lo in range(0, count, blk):
-        out, ocount, dropped = expand_chunk(
+        out, ocount, dropped, filt = expand_chunk(
             adj, states[lo:lo + blk], (rows + lo) < count, k, out, ocount,
-            dropped, allowed, n=n, cap=cap, block=blk, schedule=schedule,
-            backend=backend)
+            dropped, filt, allowed, n=n, cap=cap, block=blk, mode=mode,
+            use_mmw=use_mmw, m_bits=m_bits, k_hashes=k_hashes,
+            schedule=schedule, backend=backend,
+            use_simplicial=use_simplicial)
     out = out[:cap]
-    if count > blk:
+    if mode == "sort" and count > blk:
         # cross-chunk exact dedup, only when the level spanned several
         # chunks (single-chunk output is already sorted-unique)
         valid = torch.arange(cap, device=device) < ocount
@@ -148,20 +169,19 @@ def chunk_sweep(adj, allowed, k, states, count: int, blk, *, n, cap,
     return out, ocount, dropped
 
 
-def _level_step(adj, allowed, k, fr, count: int, *, n, cap, block,
-                schedule, backend):
+def _level_step(adj, allowed, k, fr, count: int, *, n, cap, block, **kw):
     """One wavefront level over the ``count`` live rows of ``fr``."""
     small = min(block, SMALL_BLOCK)
     blk = small if (small != block and count <= small) else block
     out, ocount, dropped = chunk_sweep(adj, allowed, k, fr.states, count,
-                                       blk, n=n, cap=cap, schedule=schedule,
-                                       backend=backend)
+                                       blk, n=n, cap=cap, **kw)
     return frontier_lib.Frontier(out, ocount.to(torch.int32),
                                  dropped.to(torch.int32))
 
 
-def decide_loop(adj, allowed, k, target, fr, *, n, cap, block, schedule,
-                backend):
+def decide_loop(adj, allowed, k, target, fr, *, n, cap, block, mode,
+                use_mmw, m_bits, k_hashes, schedule, backend,
+                use_simplicial):
     """Run up to ``target`` wavefront levels; stop early on emptiness.
 
     Returns (frontier, levels_run, expanded, dropped_total); the last is a
@@ -172,7 +192,10 @@ def decide_loop(adj, allowed, k, target, fr, *, n, cap, block, schedule,
     while level < target and count > 0:
         expanded += count
         fr = _level_step(adj, allowed, k, fr, count, n=n, cap=cap,
-                         block=block, schedule=schedule, backend=backend)
+                         block=block, mode=mode, use_mmw=use_mmw,
+                         m_bits=m_bits, k_hashes=k_hashes,
+                         schedule=schedule, backend=backend,
+                         use_simplicial=use_simplicial)
         dropped = dropped + fr.dropped
         count = int(fr.count)
         level += 1
@@ -180,8 +203,10 @@ def decide_loop(adj, allowed, k, target, fr, *, n, cap, block, schedule,
 
 
 def fused_decide_launch(adj_dev, allowed_dev, k: int, target, *, n, cap,
-                        block, mode="sort", schedule="doubling",
-                        backend="torch", fr=None, max_levels=None,
+                        block, mode="sort", use_mmw=False,
+                        m_bits=DEFAULT_M_BITS, k_hashes=bloom.DEFAULT_K,
+                        schedule="doubling", backend="torch",
+                        use_simplicial=False, fr=None, max_levels=None,
                         tracker=None) -> DispatchHandle:
     """Run one decide; return its ``DispatchHandle``.
 
@@ -190,7 +215,8 @@ def fused_decide_launch(adj_dev, allowed_dev, k: int, target, *, n, cap,
     the CPU and the run's total drop count."""
     device = adj_dev.device
     backend_lib.validate(backend, mode=mode, schedule=schedule,
-                         device=device)
+                         use_mmw=use_mmw, use_simplicial=use_simplicial,
+                         m_bits=m_bits, device=device)
     block = validate_geometry(cap, block)
     w = adj_dev.shape[-1]
     if fr is None:
@@ -199,7 +225,8 @@ def fused_decide_launch(adj_dev, allowed_dev, k: int, target, *, n, cap,
 
     fr, _level, expanded, dropped = decide_loop(
         adj_dev, allowed_dev, int(k), levels, fr, n=n, cap=cap, block=block,
-        schedule=schedule, backend=backend)
+        mode=mode, use_mmw=use_mmw, m_bits=m_bits, k_hashes=k_hashes,
+        schedule=schedule, backend=backend, use_simplicial=use_simplicial)
     tr = telemetry.get(tracker)
     tr.count(dispatches=1)
     event = None
@@ -218,7 +245,9 @@ def fused_decide_launch(adj_dev, allowed_dev, k: int, target, *, n, cap,
 
 
 def fused_decide(adj_dev, allowed_dev, k: int, target, *, n, cap, block,
-                 mode="sort", schedule="doubling", backend="torch", fr=None,
+                 mode="sort", use_mmw=False, m_bits=DEFAULT_M_BITS,
+                 k_hashes=bloom.DEFAULT_K, schedule="doubling",
+                 backend="torch", use_simplicial=False, fr=None,
                  max_levels=None, tracker=None):
     """Blocking form of ``fused_decide_launch``: launch, then ``result()``.
 
@@ -227,5 +256,6 @@ def fused_decide(adj_dev, allowed_dev, k: int, target, *, n, cap, block,
     Returns (feasible, inexact, expanded, frontier_host)."""
     return fused_decide_launch(
         adj_dev, allowed_dev, k, target, n=n, cap=cap, block=block,
-        mode=mode, schedule=schedule, backend=backend, fr=fr,
-        max_levels=max_levels, tracker=tracker).result()
+        mode=mode, use_mmw=use_mmw, m_bits=m_bits, k_hashes=k_hashes,
+        schedule=schedule, backend=backend, use_simplicial=use_simplicial,
+        fr=fr, max_levels=max_levels, tracker=tracker).result()

@@ -3,14 +3,17 @@
 ``wavefront_expand`` is the ``torch`` backend's ``wavefront_expand`` op
 (``core.backend``) and the plain version of the CUDA wavefront kernel
 (``repro_torch.kernels.wavefront``), which computes the same function bit
-for bit.  It ports ``repro.core.expand.expand_block`` and
-``wavefront_expand`` without the pruning rules.
+for bit.  It ports ``repro.core.expand.expand_block``,
+``wavefront_expand`` and the two pruning rules: simplicial collapse
+(``simplicial_viol``, ``simplicial_mask``, ``collapse_simplicial``) and
+the MMW prune (``core.mmw.mmw_bound``), applied in the reference's order.
 """
 from __future__ import annotations
 
 import torch
 
 from . import bitset, components
+from . import mmw as mmw_lib
 
 
 def expand_block(adj: torch.Tensor, states: torch.Tensor,
@@ -44,19 +47,63 @@ def expand_block(adj: torch.Tensor, states: torch.Tensor,
     return children, feasible, degrees, reach
 
 
+def simplicial_viol(q: torch.Tensor, closed: torch.Tensor,
+                    n: int) -> torch.Tensor:
+    """viol (B, n) bool: candidate v has a witness u in Q_v whose closed
+    eliminated-graph neighbourhood misses part of Q_v (so Q_v is no
+    clique).  q, closed: (B, n, W) int32 words.
+
+    ``miss[b, v, u]`` counts the x in Q_v outside closed[u] with a float32
+    batched matmul of 0/1 matrices (counts <= n, exact)."""
+    qb = bitset.unpack(q, n).to(torch.float32)                # (B, v, x)
+    open_ = (~bitset.unpack(closed, n)).to(torch.float32)     # (B, u, x)
+    miss = torch.matmul(qb, open_.transpose(1, 2)) > 0        # (B, v, u)
+    return torch.any((qb > 0) & miss, dim=-1)
+
+
+def simplicial_mask(adj, states, reach, feasible, n: int) -> torch.Tensor:
+    """Per (state, v): is v a feasible simplicial vertex of the eliminated
+    graph G_S?  Eliminating one first is safe, so the caller collapses
+    ``feasible`` to one such v.
+
+    adj (n, W); states (B, W); reach (B, n, W); feasible (B, n) ->
+    (B, n) bool."""
+    eye = bitset.eye_words(n, adj.shape[-1], adj.device)
+    q = (reach & ~states[:, None, :]) & ~eye[None]            # Q(S, v)
+    closed = reach | eye[None]                                # N[u]
+    return feasible & ~simplicial_viol(q, closed, n)
+
+
+def collapse_simplicial(feasible: torch.Tensor,
+                        simp: torch.Tensor) -> torch.Tensor:
+    """If any simplicial candidate exists, keep only the lowest-index one."""
+    has = torch.any(simp, dim=-1, keepdim=True)
+    idx = torch.argmax(simp.to(torch.uint8), dim=-1)          # first True
+    only = (torch.arange(simp.shape[-1], device=simp.device)[None, :]
+            == idx[:, None]) & simp
+    return torch.where(has, only, feasible)
+
+
 def wavefront_expand(adj, states, valid, k, allowed, *, n: int,
                      schedule: str = "doubling", use_mmw: bool = False,
                      use_simplicial: bool = False):
-    """The Listing-1 inner loop, torch backend: expand a block and apply
-    the feasibility test.
+    """The Listing-1 inner loop, torch backend: expand a block, apply the
+    feasibility test and the enabled pruning rules (simplicial collapse,
+    then the MMW prune, as the reference).
 
     Returns (children (B, n, W) int32 words, feasible (B, n) bool)."""
-    if use_mmw or use_simplicial:
-        raise ValueError(
-            "the pruning rules (use_mmw, use_simplicial) are not ported "
-            "yet (ROADMAP B3, B4)")
-    children, feasible, _deg, _reach = expand_block(
+    children, feasible, _deg, reach = expand_block(
         adj, states, valid, k, allowed, n, schedule=schedule)
+    if use_simplicial:
+        simp = simplicial_mask(adj, states, reach, feasible, n)
+        feasible = collapse_simplicial(feasible, simp)
+    if use_mmw:
+        # only rows with a feasible candidate can change; the bound of the
+        # others is never read
+        rows = feasible.any(dim=1).nonzero().squeeze(1)
+        if rows.numel():
+            lbs = mmw_lib.mmw_bound(reach[rows], states[rows], k, n=n)
+            feasible[rows] &= (lbs <= int(k))[:, None]
     return children, feasible
 
 

@@ -9,14 +9,17 @@ Ports ``repro.core.solver``; the structure is the paper's (Listing 1 +
       for level = 0 .. n - max(k+1, |C|) - 1:                    [rules 1,3]
           expand every S by every candidate v not in S u C,
               keeping S u {v} iff deg_S(v) <= k
-          exact sort dedup
+              [optional: simplicial collapse, MMW prune]
+          dedup (exact sort | Bloom filter)
           if frontier empty: k infeasible
       k feasible -> tw = k
 
 Overflow of the fixed-capacity lists drops states and marks the run
-inexact.  Entry points run on ``cuda`` with the ``cuda`` backend (the
-hand-written kernels) unless the caller passes ``device="cpu"``, where
-the ``torch`` backend's plain ops run.
+inexact.  ``mode="bloom"`` is the paper's Monte-Carlo dedup (a false
+positive drops a state without marking the run inexact), ``mode="sort"``
+(default) the exact one.  Entry points run on ``cuda`` with the ``cuda``
+backend (the hand-written kernels) unless the caller passes
+``device="cpu"``, where the ``torch`` backend's plain ops run.
 """
 from __future__ import annotations
 
@@ -30,7 +33,7 @@ import torch
 
 from . import backend as backend_lib
 from . import batch as batch_lib
-from . import bitset, bounds, dedup, engine as engine_lib
+from . import bitset, bloom, bounds, dedup, engine as engine_lib
 from . import frontier as frontier_lib
 from . import expand
 from . import preprocess as preprocess_lib
@@ -49,12 +52,15 @@ class LevelStats:
 
 def run_level(adj_dev, fr: frontier_lib.Frontier, k: int, allowed_dev,
               *, n: int, cap: int, block: int, schedule: str,
-              backend: str = "torch", tracker=None):
+              mode: str = "sort", use_mmw: bool = False,
+              m_bits: int = engine_lib.DEFAULT_M_BITS,
+              k_hashes: int = bloom.DEFAULT_K, backend: str = "torch",
+              use_simplicial: bool = False, tracker=None):
     """One wavefront level: expand all states in ``fr`` into a new frontier.
 
     Host-loop engine: an adaptive block ``max(32, min(block,
-    pow2(count)))`` per level, and a cross-chunk dedup whenever the level
-    took more than one chunk."""
+    pow2(count)))`` per level, and in sort mode a cross-chunk dedup
+    whenever the level took more than one chunk."""
     tr = telemetry.get(tracker)
     w = fr.w
     count = int(fr.count)
@@ -66,19 +72,25 @@ def run_level(adj_dev, fr: frontier_lib.Frontier, k: int, allowed_dev,
     out = engine_lib.new_out(cap, w, device)
     ocount = torch.zeros((), dtype=torch.int64, device=device)
     dropped = torch.zeros((), dtype=torch.int64, device=device)
+    filt = None
+    if mode == "bloom":
+        filt = backend_lib.get_op("bloom_make_filter", backend)(
+            m_bits, device=device)
     rows = torch.arange(block, dtype=torch.int64, device=device)
 
     n_chunks = max(1, -(-count // block))
     for c in range(n_chunks):
         lo = c * block
-        out, ocount, dropped = engine_lib.expand_chunk(
+        out, ocount, dropped, filt = engine_lib.expand_chunk(
             adj_dev, fr.states[lo:lo + block], (rows + lo) < count, k, out,
-            ocount, dropped, allowed_dev, n=n, cap=cap, block=block,
-            schedule=schedule, backend=backend)
+            ocount, dropped, filt, allowed_dev, n=n, cap=cap, block=block,
+            mode=mode, use_mmw=use_mmw, m_bits=m_bits, k_hashes=k_hashes,
+            schedule=schedule, backend=backend,
+            use_simplicial=use_simplicial)
         tr.count(dispatches=1)
     out = out[:cap]
 
-    if n_chunks > 1:
+    if mode == "sort" and n_chunks > 1:
         valid = torch.arange(cap, device=device) < ocount
         out, ocount, drop2 = dedup.dedup_compact(out, valid, cap)
         # cross-chunk duplicates removed; drops before dedup stay counted
@@ -105,11 +117,14 @@ class DecideResult:
 
 
 def decide(g: Graph, k: int, clique: list, *, cap: int, block: int,
-           mode: str = "sort", schedule: str = "doubling",
-           backend: Optional[str] = None, keep_levels: bool = False,
-           engine: str = "fused", tracker=None,
+           mode: str = "sort", use_mmw: bool = False,
+           m_bits: int = engine_lib.DEFAULT_M_BITS,
+           k_hashes: int = bloom.DEFAULT_K, schedule: str = "doubling",
+           backend: Optional[str] = None, use_simplicial: bool = False,
+           keep_levels: bool = False, engine: str = "fused", tracker=None,
            device=None) -> DecideResult:
-    """Is tw(g) <= k?  ('no' may be inexact after an overflow.)
+    """Is tw(g) <= k?  ('no' may be inexact after an overflow, or Monte
+    Carlo in Bloom mode.)
 
     ``engine="fused"`` runs ``engine.fused_decide``; ``engine="host"``
     runs ``run_level`` per level and is the only engine that keeps
@@ -118,7 +133,8 @@ def decide(g: Graph, k: int, clique: list, *, cap: int, block: int,
     if backend is None:
         backend = backend_lib.default_backend(device)
     backend_lib.validate(backend, mode=mode, schedule=schedule,
-                         device=device)
+                         use_mmw=use_mmw, use_simplicial=use_simplicial,
+                         m_bits=m_bits, device=device)
     tr = telemetry.get(tracker)
     n = g.n
     target = n - max(k + 1, len(clique))
@@ -140,7 +156,9 @@ def decide(g: Graph, k: int, clique: list, *, cap: int, block: int,
         with tr.time_block("rung_s"):
             feasible, inexact, expanded, fr = engine_lib.fused_decide(
                 adj_dev, allowed_dev, k, target, n=n, cap=cap, block=block,
-                mode=mode, schedule=schedule, backend=backend, tracker=tr)
+                mode=mode, use_mmw=use_mmw, m_bits=m_bits,
+                k_hashes=k_hashes, schedule=schedule, backend=backend,
+                use_simplicial=use_simplicial, tracker=tr)
         # the fused loop only surfaces the final frontier, so this is a
         # lower bound on the true per-level peak
         tr.gauge_max("frontier_peak_rows", int(fr.count))
@@ -154,8 +172,10 @@ def decide(g: Graph, k: int, clique: list, *, cap: int, block: int,
     with tr.time_block("rung_s"):
         for _level in range(target):
             fr, stats = run_level(adj_dev, fr, k, allowed_dev, n=n, cap=cap,
-                                  block=block, schedule=schedule,
-                                  backend=backend, tracker=tr)
+                                  block=block, schedule=schedule, mode=mode,
+                                  use_mmw=use_mmw, m_bits=m_bits,
+                                  k_hashes=k_hashes, backend=backend,
+                                  use_simplicial=use_simplicial, tracker=tr)
             expanded += stats.expanded
             inexact |= stats.dropped > 0
             if keep_levels:
@@ -297,8 +317,11 @@ def plan_block(g: Graph, *, use_clique: bool, use_paths: bool,
 def solve_block(g: Graph, *, cap: Optional[int], block: int, mode: str,
                 schedule: str, use_clique: bool, use_paths: bool,
                 reconstruct: bool, start_k: Optional[int], verbose: bool,
-                backend: str, engine: str = "fused", seed: int = 0,
-                tracker=None, device=None) -> SolveResult:
+                backend: str, use_mmw: bool = False,
+                m_bits: int = engine_lib.DEFAULT_M_BITS,
+                k_hashes: int = bloom.DEFAULT_K,
+                use_simplicial: bool = False, engine: str = "fused",
+                seed: int = 0, tracker=None, device=None) -> SolveResult:
     """Iterative deepening on one (biconnected) block.
 
     ``cap=None`` right-sizes the frontier buffer with
@@ -314,8 +337,10 @@ def solve_block(g: Graph, *, cap: Optional[int], block: int, mode: str,
         cap = batch_lib.plan_capacity(g.n, block=block)
     tr.gauge("frontier_cap", cap)
 
-    decide_kw = dict(cap=cap, block=block, mode=mode, schedule=schedule,
-                     backend=backend, device=device)
+    decide_kw = dict(cap=cap, block=block, mode=mode, use_mmw=use_mmw,
+                     m_bits=m_bits, k_hashes=k_hashes, schedule=schedule,
+                     backend=backend, use_simplicial=use_simplicial,
+                     device=device)
     per_k: dict = {}
     expanded_total = 0
     any_inexact = False
@@ -386,6 +411,8 @@ class SuiteFold:
 
 def solve(g: Graph, *, cap: Optional[int] = None, block: int = 1 << 11,
           mode: str = "sort", use_mmw: bool = False,
+          m_bits: int = engine_lib.DEFAULT_M_BITS,
+          k_hashes: int = bloom.DEFAULT_K,
           schedule: Optional[str] = None, use_clique: bool = True,
           use_paths: bool = True, use_preprocess: bool = True,
           reconstruct: bool = False, start_k: Optional[int] = None,
@@ -402,9 +429,12 @@ def solve(g: Graph, *, cap: Optional[int] = None, block: int = 1 << 11,
     picks the fused level loop or the per-level host loop; the host loop
     is forced where ``reconstruct=True`` needs level snapshots, and the
     block-local orders are stitched back through the preprocess vertex
-    maps.  ``use_mmw``, ``use_simplicial``, ``lanes``, ``shards``,
-    ``heuristics`` and ``mode="bloom"`` are not ported and raise
-    ``BackendCapabilityError`` before any work."""
+    maps.  ``mode="bloom"`` dedups with an ``m_bits``-bit Bloom filter
+    probed ``k_hashes`` times per state (the paper's configuration, with
+    ``use_mmw=True``); ``use_mmw`` and ``use_simplicial`` turn on the MMW
+    prune and the simplicial collapse.  ``lanes``, ``shards`` and
+    ``heuristics`` are not ported and raise ``BackendCapabilityError``
+    before any work."""
     t0 = time.time()
     device = backend_lib.resolve_device(device)
     if backend is None:
@@ -413,15 +443,17 @@ def solve(g: Graph, *, cap: Optional[int] = None, block: int = 1 << 11,
         schedule = "doubling"
     backend_lib.validate(backend, mode=mode, schedule=schedule,
                          use_mmw=use_mmw, use_simplicial=use_simplicial,
-                         lanes=int(lanes), shards=int(shards),
-                         heuristics=int(heuristics), device=device)
+                         m_bits=m_bits, lanes=int(lanes),
+                         shards=int(shards), heuristics=int(heuristics),
+                         device=device)
     if g.n == 0:
         return SolveResult(0, True, 0, 0, 0, 0.0, [], {})
-    solve_kw = dict(cap=cap, block=block, mode=mode, schedule=schedule,
+    solve_kw = dict(cap=cap, block=block, mode=mode, use_mmw=use_mmw,
+                    m_bits=m_bits, k_hashes=k_hashes, schedule=schedule,
                     use_clique=use_clique, use_paths=use_paths,
                     start_k=start_k, verbose=verbose, backend=backend,
-                    engine=engine, seed=seed, tracker=tracker,
-                    device=device)
+                    use_simplicial=use_simplicial, engine=engine, seed=seed,
+                    tracker=tracker, device=device)
     if not use_preprocess:
         return solve_block(g, reconstruct=reconstruct, **solve_kw)
 

@@ -3,9 +3,13 @@
 Each kernel is one ``.cu`` file with a plain C interface.  On first use it
 is compiled with ``nvcc`` for ``sm_90a`` into a shared library under
 ``build/repro_torch/`` at the repository root, named by a hash of its
-source, and loaded with ``ctypes``.  ``build_all`` starts one ``nvcc`` per
-source at once.  A missing compiler or a failed build raises: nothing
-falls back to the plain PyTorch versions.
+source, of every header a kernel may include (``*.cuh`` under this
+package) and of the flags, and loaded with ``ctypes``.  ``build_all``
+starts one ``nvcc`` per source at once.  A missing compiler or a failed
+build raises: nothing falls back to the plain PyTorch versions.
+
+``check_operands``, ``require_cuda`` and ``check_launch`` are the
+wrappers' shared checks.
 """
 from __future__ import annotations
 
@@ -20,9 +24,10 @@ import threading
 _PKG = pathlib.Path(__file__).resolve().parent
 BUILD_DIR = _PKG.parents[2] / "build" / "repro_torch"
 
-# kernel name -> its source, relative to this package
+# kernel name -> its source
 SOURCES = {
-    "wavefront": _PKG / "wavefront" / "csrc" / "wavefront.cu",
+    name: _PKG / name / "csrc" / f"{name}.cu"
+    for name in ("wavefront", "mmw", "expand", "bloom")
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -49,10 +54,20 @@ def nvcc_path() -> str:
         "built from source on first use")
 
 
+def headers() -> list:
+    """Every header a kernel source may include, in a fixed order."""
+    return sorted(_PKG.rglob("*.cuh"))
+
+
 def _target(name: str) -> pathlib.Path:
-    digest = hashlib.sha256(SOURCES[name].read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    """The library of kernel ``name``: its name hashes the source, every
+    header and the flags, so an edited header builds anew."""
+    h = hashlib.sha256(SOURCES[name].read_bytes())
+    for path in headers():
+        h.update(str(path.relative_to(_PKG)).encode())
+        h.update(path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str):
@@ -99,3 +114,29 @@ def library(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(target))
             _LIBS[name] = lib
         return lib
+
+
+def check_operands(op: str, device, **operands) -> None:
+    """Raise unless every operand ``name=(tensor, dtype)`` lies on
+    ``device``, has ``dtype`` and is contiguous."""
+    for name, (t, dtype) in operands.items():
+        if t.device != device:
+            raise ValueError(f"{op}: {name} is on {t.device}, expected "
+                             f"{device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{op}: {name} must be {dtype}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{op}: {name} must be contiguous")
+
+
+def require_cuda(op: str, t) -> None:
+    """Raise unless ``t`` lies on a CUDA device (the CPU takes the plain
+    version before this is reached)."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{op}: no kernel for device {t.device}")
+
+
+def check_launch(op: str, err: int, detail: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{op} kernel launch failed: cudaError {err} "
+                           f"({detail})")

@@ -3,9 +3,9 @@
 ``wavefront_expand`` is the ``cuda`` implementation of the registry's
 ``wavefront_expand`` op (``repro_torch.core.backend``), with the same
 signature and bit-identical outputs as the ``torch`` op
-(``repro_torch.core.expand.wavefront_expand``).  It ports
-``repro.kernels.wavefront.ops.wavefront_expand`` and the Pallas kernel
-behind it.
+(``repro_torch.core.expand.wavefront_expand``), both pruning rules
+included.  It ports ``repro.kernels.wavefront.ops.wavefront_expand`` and
+the Pallas kernel behind it.
 
 A CUDA tensor launches the kernel; a CPU tensor takes the plain version
 ``wavefront_ref``.  Nothing else falls back: a failed build or launch
@@ -28,8 +28,8 @@ LAUNCHES = 0
 WARPS_PER_BLOCK = 8
 
 _c = ctypes.c_void_p
-_ARGTYPES = [_c, _c, _c, _c, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int, ctypes.c_int, ctypes.c_int, _c, _c, _c]
+_i = ctypes.c_int
+_ARGTYPES = [_c, _c, _c, _c, _i, _i, _i, _i, _i, _i, _i, _i, _c, _c, _c]
 
 
 def wavefront_ref(adj, states, valid, k, allowed, *, n: int,
@@ -52,7 +52,6 @@ def _lib():
 
 
 def _check(adj, states, valid, allowed, n):
-    dev = states.device
     b, w = states.shape if states.dim() == 2 else (None, None)
     if w is None or adj.shape != (n, w) or allowed.shape != (w,) \
             or valid.shape != (b,):
@@ -61,24 +60,16 @@ def _check(adj, states, valid, allowed, n):
             f"valid (B,), allowed (W,); got {tuple(adj.shape)}, "
             f"{tuple(states.shape)}, {tuple(valid.shape)}, "
             f"{tuple(allowed.shape)}")
-    for name, t, dtype in (("adj", adj, torch.int32),
-                           ("states", states, torch.int32),
-                           ("allowed", allowed, torch.int32),
-                           ("valid", valid, torch.bool)):
-        if t.device != dev:
-            raise ValueError(f"wavefront_expand: {name} is on {t.device}, "
-                             f"states on {dev}")
-        if t.dtype != dtype:
-            raise TypeError(f"wavefront_expand: {name} must be {dtype}, "
-                            f"got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"wavefront_expand: {name} must be contiguous")
+    build.check_operands("wavefront_expand", states.device,
+                         adj=(adj, torch.int32), states=(states, torch.int32),
+                         allowed=(allowed, torch.int32),
+                         valid=(valid, torch.bool))
 
 
 def wavefront_expand(adj, states, valid, k, allowed, *, n: int,
                      schedule: str = "doubling", use_mmw: bool = False,
                      use_simplicial: bool = False):
-    """Fused expand + feasibility for a block of states.
+    """Fused expand + feasibility + pruning rules for a block of states.
 
     adj (n, W) int32 words; states (B, W) int32; valid (B,) bool; k int;
     allowed (W,) int32 -> (children (B, n, W) int32, feasible (B, n) bool).
@@ -88,16 +79,11 @@ def wavefront_expand(adj, states, valid, k, allowed, *, n: int,
         raise BackendCapabilityError(
             f"the CUDA wavefront kernel runs the static doubling closure; "
             f"schedule={schedule!r} is not ported (ROADMAP A3)")
-    if use_mmw or use_simplicial:
-        raise BackendCapabilityError(
-            "the CUDA wavefront kernel has no pruning rules yet "
-            "(use_mmw: ROADMAP B4, use_simplicial: ROADMAP B3)")
     _check(adj, states, valid, allowed, n)
     if states.device.type == "cpu":
-        return wavefront_ref(adj, states, valid, k, allowed, n=n)
-    if states.device.type != "cuda":
-        raise ValueError(f"wavefront_expand: no kernel for device "
-                         f"{states.device}")
+        return wavefront_ref(adj, states, valid, k, allowed, n=n,
+                             use_mmw=use_mmw, use_simplicial=use_simplicial)
+    build.require_cuda("wavefront_expand", states)
     b, w = states.shape
     lib = _lib()
     if w > lib.wavefront_max_words():
@@ -108,14 +94,12 @@ def wavefront_expand(adj, states, valid, k, allowed, *, n: int,
     children = torch.empty((b, n, w), dtype=torch.int32, device=states.device)
     feasible = torch.empty((b, n), dtype=torch.bool, device=states.device)
     with torch.cuda.device(states.device):
-        stream = torch.cuda.current_stream().cuda_stream
         err = lib.wavefront_launch(
             adj.data_ptr(), states.data_ptr(), valid.data_ptr(),
             allowed.data_ptr(), int(k), n, w, b,
-            components.log2_ceil(max(n, 2)), WARPS_PER_BLOCK,
-            children.data_ptr(), feasible.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"wavefront kernel launch failed: cudaError {err} "
-                           f"(n={n}, W={w}, B={b})")
+            components.log2_ceil(max(n, 2)), WARPS_PER_BLOCK, int(use_mmw),
+            int(use_simplicial), children.data_ptr(), feasible.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    build.check_launch("wavefront", err, f"n={n}, W={w}, B={b}")
     LAUNCHES += 1
     return children, feasible

@@ -3,15 +3,17 @@
     python -m repro_torch.launch.solve --graph queen5_5
     python -m repro_torch.launch.solve --graph petersen --reconstruct
     python -m repro_torch.launch.solve --graph myciel4 --device cpu
+    python -m repro_torch.launch.solve --graph queen5_5 --mode bloom --mmw
+    python -m repro_torch.launch.solve --graph queen5_5 --simplicial
     python -m repro_torch.launch.solve --dimacs path/to/graph.gr
 
 Takes the flags of ``repro.launch.solve``.  ``--device`` defaults to
 ``cuda`` and ``--backend`` to ``cuda`` on a card (the hand-written
 kernels) or ``torch`` elsewhere (the plain ops).  Flags this package does
-not port yet (``--mode bloom``, ``--mmw``, ``--simplicial``,
-``--batch``, ``--shards``, ``--donate-ratio``, ``--heuristics``,
-``--distributed``, ``--devices`` and schedules other than ``doubling``)
-are rejected with a capability error before any work.
+not port yet (``--batch``, ``--shards``, ``--donate-ratio``,
+``--heuristics``, ``--distributed``, ``--devices`` and schedules other
+than ``doubling``) are rejected with a capability error before any
+work.
 """
 from __future__ import annotations
 
@@ -94,7 +96,8 @@ def main(argv=None):
           f"backend={backend}", flush=True)
     res = solver_lib.solve(
         g, cap=args.cap, block=args.block, mode=args.mode,
-        backend=backend, schedule=args.schedule,
+        use_mmw=args.mmw, backend=backend,
+        use_simplicial=args.simplicial, schedule=args.schedule,
         use_clique=not args.no_clique, use_paths=not args.no_paths,
         use_preprocess=not args.no_preprocess,
         reconstruct=args.reconstruct, verbose=args.verbose,

@@ -1,0 +1,110 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+
+Every test here is marked ``cuda`` and skips without a CUDA device: the
+kernels are CUDA C++ for ``sm_90a`` with no CPU mode.  The file imports
+neither ``jax`` nor ``repro`` (inputs come from the port's own graph
+generators and numpy), so it also runs where only the port is installed:
+
+    python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+``chip_smoke.py`` runs the same comparisons at the main path's shapes.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import bitset, components, graph
+from repro_torch.kernels import bloom as bloom_kernel
+from repro_torch.kernels import expand as expand_kernel
+from repro_torch.kernels import mmw as mmw_kernel
+from repro_torch.kernels import wavefront as wavefront_kernel
+
+pytestmark = pytest.mark.cuda
+
+FLAGS = [(False, False), (True, False), (False, True), (True, True)]
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels are CUDA C++ for "
+                    "sm_90a with no CPU mode (chip_smoke.py runs them)")
+    return torch.device("cuda")
+
+
+def _inputs(n, b, seed, dev):
+    """adj, states (some with bit 31 set), valid (a quarter invalid), k,
+    allowed (vertex 0 skipped) for a seeded G(n, 0.35)."""
+    rng = np.random.RandomState(seed)
+    g = graph.gnp(n, 0.35, seed)
+    bits = rng.rand(b, n) < rng.uniform(0.05, 0.6, size=(b, 1))
+    for top in (31, 63):
+        if top < n:
+            bits[::2, top] = True
+    states = bitset.pack(torch.from_numpy(bits), n).to(dev)
+    valid = torch.from_numpy(np.arange(b) % 4 != 0).to(dev)
+    allowed = bitset.to_words(bitset.np_allowed(n, [0]), dev)
+    return (bitset.to_words(g.packed(), dev), states, valid, n // 3,
+            allowed)
+
+
+@pytest.mark.parametrize("flags", FLAGS,
+                         ids=["none", "mmw", "simplicial", "mmw+simplicial"])
+def test_wavefront_kernel_matches_plain_version(dev, flags):
+    kw = dict(use_mmw=flags[0], use_simplicial=flags[1])
+    for n in (3, 17, 31, 33, 48, 64, 100):
+        args = _inputs(n, 37, seed=n, dev=dev)
+        gc, gf = wavefront_kernel.wavefront_expand(*args, n=n, **kw)
+        wc, wf = wavefront_kernel.wavefront_ref(*args, n=n, **kw)
+        assert torch.equal(gc, wc) and torch.equal(gf, wf), n
+
+
+def test_mmw_kernel_matches_plain_version(dev):
+    for n in (3, 17, 31, 33, 48, 64, 100):
+        adj, states, valid, _, _ = _inputs(n, 37, seed=n, dev=dev)
+        _, reach = components.eliminated_degrees(adj, states, n)
+        reach = reach * valid[:, None, None]
+        for k in (0, 2, 5, n):
+            assert torch.equal(
+                mmw_kernel.mmw_bounds(reach, states, k, n=n),
+                mmw_kernel.mmw_bounds_ref(reach, states, k, n=n)), (n, k)
+
+
+def test_expand_kernel_matches_plain_version(dev):
+    for n in (3, 17, 31, 33, 48, 64, 100):
+        adj, states, _, _, _ = _inputs(n, 37, seed=n, dev=dev)
+        assert torch.equal(expand_kernel.expand_degrees(adj, states, n=n),
+                           expand_kernel.expand_degrees_ref(adj, states,
+                                                            n=n)), n
+
+
+@pytest.mark.parametrize("m_bits,k", [(64, 3), (1 << 14, 17),
+                                      (1 << 24, 17)])
+def test_bloom_kernel_matches_plain_version(dev, m_bits, k):
+    """Duplicates and, at 64 bits, rows sharing probe bits; the filter is
+    carried from batch to batch."""
+    rng = np.random.RandomState(m_bits + k)
+    filt = bloom_kernel.make_filter_words(m_bits, device=dev)
+    for b in (1, 300, 4096):
+        states = rng.randint(0, 2**32, size=(b, 2), dtype=np.uint64).astype(
+            np.uint32)
+        states[1::3] = states[::3][:len(states[1::3])]       # duplicates
+        s = bitset.to_words(states, dev)
+        v = torch.from_numpy(rng.rand(b) < 0.9).to(dev)
+        want = bloom_kernel.bloom_insert_ref(filt.clone(), s, v,
+                                             m_bits=m_bits, k_hashes=k)
+        got = bloom_kernel.bloom_insert(filt, s, v, m_bits=m_bits,
+                                        k_hashes=k)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_wrappers_count_their_launches(dev):
+    args = _inputs(20, 8, seed=1, dev=dev)
+    before = wavefront_kernel.ops.LAUNCHES
+    wavefront_kernel.wavefront_expand(*args, n=20, use_mmw=True)
+    assert wavefront_kernel.ops.LAUNCHES == before + 1
+    before = bloom_kernel.ops.LAUNCHES
+    filt = bloom_kernel.make_filter_words(1 << 10, device=dev)
+    bloom_kernel.bloom_insert(filt, args[1], args[2], m_bits=1 << 10,
+                              k_hashes=3)
+    assert bloom_kernel.ops.LAUNCHES == before + 1

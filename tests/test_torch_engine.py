@@ -39,23 +39,25 @@ def _inputs(g, clique):
     return adj, allowed
 
 
-def _ref_step(adj, allowed, k, target, fr_np, *, n, cap, block, levels):
+def _ref_step(adj, allowed, k, target, fr_np, *, n, cap, block, levels,
+              flags=None):
     states, count, dropped = fr_np
     fr = ref_frontier.Frontier(jnp.asarray(states), jnp.int32(count),
                                jnp.int32(dropped))
     feas, inexact, expanded, out = ref_engine.fused_decide(
         jnp.asarray(adj), jnp.asarray(allowed), k, target, n=n, cap=cap,
-        block=block, fr=fr, max_levels=levels, **REF_KW)
+        block=block, fr=fr, max_levels=levels, **{**REF_KW, **(flags or {})})
     return (feas, inexact, expanded,
             (np.asarray(out.states), int(out.count), int(out.dropped)))
 
 
-def _port_step(adj, allowed, k, target, fr_np, *, n, cap, block, levels):
+def _port_step(adj, allowed, k, target, fr_np, *, n, cap, block, levels,
+               flags=None):
     fr = frontier.from_numpy(*fr_np, device="cpu")
     feas, inexact, expanded, out = engine.fused_decide(
         bitset.to_words(adj, "cpu"), bitset.to_words(allowed, "cpu"), k,
         target, n=n, cap=cap, block=block, fr=fr, max_levels=levels,
-        tracker=telemetry.NULL)
+        tracker=telemetry.NULL, **(flags or {}))
     return feas, inexact, expanded, out.to_numpy()
 
 
@@ -65,9 +67,10 @@ def _assert_same(got, want):
     assert got[3][1:] == want[3][1:]
 
 
-def _walk(g, k, clique, *, cap, block, max_steps=None):
+def _walk(g, k, clique, *, cap, block, max_steps=None, flags=None):
     """Step both engines one level at a time from the reference's own
-    frontiers; returns the per-level (count, dropped) seen."""
+    frontiers; returns the per-level (count, dropped) seen.  ``flags``
+    sets the dedup mode, the pruning rules and the filter size."""
     adj, allowed = _inputs(g, clique)
     n, w = g.n, ref_bitset.n_words(g.n)
     target = n - max(k + 1, len(clique))
@@ -75,9 +78,9 @@ def _walk(g, k, clique, *, cap, block, max_steps=None):
     seen = []
     for _ in range(min(target, max_steps or target)):
         want = _ref_step(adj, allowed, k, target, fr_np, n=n, cap=cap,
-                         block=block, levels=1)
+                         block=block, levels=1, flags=flags)
         got = _port_step(adj, allowed, k, target, fr_np, n=n, cap=cap,
-                         block=block, levels=1)
+                         block=block, levels=1, flags=flags)
         _assert_same(got, want)
         seen.append((fr_np[1], want[3][1], want[3][2]))
         fr_np = want[3]
@@ -94,6 +97,28 @@ def test_levels_default_geometry_small_and_wide_chunks():
     # with the cross-chunk dedup (> 256 rows) were exercised
     assert min(counts) <= engine.SMALL_BLOCK
     assert max(counts) > 256
+
+
+FLAG_CONFIGS = {
+    "bloom": dict(mode="bloom", m_bits=1 << 16, k_hashes=17),
+    "mmw": dict(use_mmw=True),
+    "simplicial": dict(use_simplicial=True),
+    "bloom+mmw": dict(mode="bloom", use_mmw=True, m_bits=1 << 16,
+                      k_hashes=17),
+}
+
+
+@pytest.mark.parametrize("config", list(FLAG_CONFIGS))
+def test_levels_under_each_flag(config):
+    """Per-level frontiers with Bloom dedup and the pruning rules, over
+    small and multi-chunk levels (Bloom mode skips the cross-chunk
+    dedup)."""
+    g = ref_graph.REGISTRY["queen5_5"]()
+    seen = _walk(g, 17, [], cap=1 << 13, block=256,
+                 flags=FLAG_CONFIGS[config])
+    assert len(seen) > 3
+    if config in ("bloom", "simplicial"):
+        assert max(c for c, _, _ in seen) > 256
 
 
 def test_levels_forced_overflow():

@@ -1,10 +1,10 @@
-"""Port surface: unported flags, the backend registry, the CLI, import
-hygiene and ``chip_smoke.py``'s constants.
+"""Port surface: unported and ported flags, the backend registry, the CLI,
+import hygiene and ``chip_smoke.py``'s constants.
 
 Unported flags must fail with ``BackendCapabilityError`` before any work;
-the CLI prints the reference's result line; ``repro_torch`` imports
-neither ``jax`` nor ``repro``; ``chip_smoke.py``'s expected results are
-the JAX package's.
+ported ones run and match the reference; the CLI prints the reference's
+result line; ``repro_torch`` imports neither ``jax`` nor ``repro``;
+``chip_smoke.py``'s expected results are the JAX package's.
 """
 import json
 import pathlib
@@ -26,8 +26,9 @@ def _port_graph(g):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(mode="bloom"), "A7"), (dict(use_mmw=True), "B4"),
-    (dict(use_simplicial=True), "B3"), (dict(schedule="while"), "A3"),
+    (dict(schedule="linear"), "A3"), (dict(schedule="matmul"), "A3"),
+    (dict(backend="cuda", mode="bloom", m_bits=100), "multiple of 32"),
+    (dict(schedule="while"), "A3"),
     (dict(lanes=2), "A8"), (dict(shards=2), "A10"),
     (dict(heuristics=1), "A9"), (dict(backend="cuda"), "CUDA device")])
 def test_unported_flags_fail_before_work(kw, item):
@@ -38,15 +39,41 @@ def test_unported_flags_fail_before_work(kw, item):
     assert tr.snapshot()["counters"] == {}
 
 
+@pytest.mark.parametrize("kw", [dict(mode="bloom"), dict(use_mmw=True),
+                                dict(use_simplicial=True)],
+                         ids=["bloom", "mmw", "simplicial"])
+def test_ported_flags_run_and_match_reference(kw):
+    g = oracle.make_graph("petersen")
+    tr = telemetry.Tracker()
+    got = solver.solve(_port_graph(g), device="cpu", tracker=tr, **kw)
+    want = ref_solver.solve(g, **kw)
+    assert (got.width, got.exact, got.lb, got.ub, got.expanded,
+            got.per_k) == (want.width, want.exact, want.lb, want.ub,
+                           want.expanded, want.per_k)
+    assert tr.snapshot()["counters"]["expanded"] == got.expanded
+
+
 def test_registry_surface():
     assert backend.BACKENDS == ("torch", "cuda")
+    assert backend.DEDUP_MODES == ("sort", "bloom")
+    both = ("torch", "cuda")
     assert backend.capability_table() == {
-        "sort_dedup": ("torch", "cuda"),
-        "wavefront_expand": ("torch", "cuda")}
+        "bloom_make_filter": both, "bloom_query_insert": both,
+        "expand_degrees": both, "mmw_bound": both,
+        "simplicial_mask": ("torch",), "sort_dedup": both,
+        "wavefront_expand": both}
+    from repro_torch.core import mmw
+    assert backend.get_op("mmw_bound", "torch") is mmw.mmw_bound
+    with pytest.raises(backend.BackendCapabilityError, match="fused"):
+        backend.get_op("simplicial_mask", "cuda")
     with pytest.raises(backend.BackendCapabilityError, match="unknown op"):
-        backend.get_op("mmw_bound", "torch")
+        backend.get_op("mmw", "torch")
     with pytest.raises(backend.BackendCapabilityError, match="backend"):
         backend.get_op("wavefront_expand", "pallas")
+    # only the packed (cuda) filter needs m_bits % 32 == 0
+    backend.validate("torch", mode="bloom", m_bits=100)
+    backend.validate("cuda", mode="bloom", m_bits=1 << 24, use_mmw=True,
+                     use_simplicial=True)
 
 
 def test_default_device_needs_a_card():
@@ -79,15 +106,27 @@ def test_cli_smoke_matches_reference_line():
     assert out.returncode == 0, out.stderr
     assert "elimination order verified: width=4" in out.stdout
     out = _run(["repro_torch.launch.solve", "--graph", "petersen",
-                "--device", "cpu", "--mmw"], module=True)
-    assert out.returncode == 2 and "B4" in out.stderr
+                "--device", "cpu", "--mode", "bloom", "--mmw"], module=True)
+    assert out.returncode == 0, out.stderr
+    assert ("[solve] treewidth=4 exact=True lb=3 ub=5 "
+            "states_expanded=108") in out.stdout
+    out = _run(["repro_torch.launch.solve", "--graph", "queen5_5",
+                "--device", "cpu", "--simplicial"], module=True)
+    assert out.returncode == 0, out.stderr
+    assert ("[solve] treewidth=18 exact=True lb=12 ub=18 "
+            "states_expanded=2279") in out.stdout
+    out = _run(["repro_torch.launch.solve", "--graph", "petersen",
+                "--device", "cpu", "--batch", "2"], module=True)
+    assert out.returncode == 2 and "A8" in out.stderr
 
 
 def test_import_hygiene_no_jax_no_repro():
     code = (
         "import sys, json\n"
         "import repro_torch, repro_torch.core.solver, "
-        "repro_torch.core.engine, repro_torch.kernels.wavefront, "
+        "repro_torch.core.engine, repro_torch.core.bloom, "
+        "repro_torch.kernels.wavefront, repro_torch.kernels.mmw, "
+        "repro_torch.kernels.expand, repro_torch.kernels.bloom, "
         "repro_torch.kernels.build, repro_torch.launch.solve\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
@@ -115,6 +154,25 @@ def test_chip_smoke_expected_values_come_from_reference(name):
     spec.loader.exec_module(chip_smoke)
     want = chip_smoke.EXPECTED[name]
     got = ref_solver.solve(ref_graph.REGISTRY[name]())
+    assert (got.width, got.exact, got.lb, got.ub, got.expanded) == (
+        want["width"], want["exact"], want["lb"], want["ub"],
+        want["expanded"])
+    assert got.per_k == {want["block"]: {
+        k: {"feasible": f, "inexact": i, "expanded": e}
+        for k, f, i, e in want["per_k"]}}
+
+
+@pytest.mark.parametrize("config", ["bloom+mmw", "simplicial"])
+@pytest.mark.parametrize("name", ["petersen", "queen5_5", "myciel4"])
+def test_chip_smoke_flag_values_come_from_reference(name, config):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    want = chip_smoke.EXPECTED_FLAGS[config][name]
+    got = ref_solver.solve(ref_graph.REGISTRY[name](),
+                           **chip_smoke.FLAG_CONFIGS[config])
     assert (got.width, got.exact, got.lb, got.ub, got.expanded) == (
         want["width"], want["exact"], want["lb"], want["ub"],
         want["expanded"])

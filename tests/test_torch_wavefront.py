@@ -54,6 +54,14 @@ def _ref(adj, states, valid, k, allowed, n):
     return np.asarray(c), np.asarray(f)
 
 
+def _ref_flags(adj, states, valid, k, allowed, n):
+    c, f = ref_expand.wavefront_expand(jnp.asarray(adj), jnp.asarray(states),
+                                       jnp.asarray(valid), jnp.int32(k),
+                                       jnp.asarray(allowed), n=n,
+                                       use_mmw=True, use_simplicial=True)
+    return np.asarray(c), np.asarray(f)
+
+
 def _port(fn, adj, states, valid, k, allowed, n):
     c, f = fn(bitset.to_words(adj, "cpu"), bitset.to_words(states, "cpu"),
               torch.from_numpy(valid), k, bitset.to_words(allowed, "cpu"),
@@ -155,8 +163,13 @@ def test_wrapper_rejects_bad_inputs_and_unported_flags():
     assert not strided.is_contiguous()
     with pytest.raises(ValueError, match="contiguous"):
         kernel_mod.wavefront_expand(a, strided, v, 3, al, n=n)
-    with pytest.raises(backend.BackendCapabilityError, match="B4"):
-        kernel_mod.wavefront_expand(a, s, v, 3, al, n=n, use_mmw=True)
+    # the pruning flags are ported: the CPU path runs them (their parity is
+    # in test_torch_pruning.py)
+    gc, gf = kernel_mod.wavefront_expand(a, s, v, 3, al, n=n, use_mmw=True,
+                                         use_simplicial=True)
+    wc, wf = _ref_flags(adj, states, valid, 3, allowed, n)
+    np.testing.assert_array_equal(bitset.from_words(gc), wc)
+    np.testing.assert_array_equal(gf.numpy(), wf)
     with pytest.raises(backend.BackendCapabilityError, match="doubling"):
         kernel_mod.wavefront_expand(a, s, v, 3, al, n=n, schedule="while")
 
@@ -169,6 +182,7 @@ def test_cpu_path_does_not_count_launches():
     assert kernel_mod.ops.LAUNCHES == before
 
 
+@pytest.mark.cuda
 def test_cuda_kernel_matches_plain_version():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the wavefront kernel is CUDA C++ "
