@@ -27,19 +27,31 @@ Phases, each fatal on failure (non-zero exit, no result line):
      accepted and replay within the width;
   4. times: each kernel and its plain version at the main path's shapes
      (B=2048 states taken from real frontiers of queen6_6 and queen7_7,
-     and a chunk's 2048*n sorted children for the Bloom kernel), with
-     CUDA events, beside the least time the card could take;
+     the wavefront kernel also at B=128, a ``SMALL_BLOCK`` chunk, and a
+     chunk's 2048*n sorted children for the Bloom kernel): the kernel's
+     device time per call from ``torch.profiler``'s kernel rows, and the
+     time per wrapper call with CUDA events, beside the least time the
+     card could take;
   5. split: one queen7_7 solve in the paper's configuration under
      ``torch.profiler``: host planning, the level loop, and the device
      time of each kernel.
 
 The second-to-last line is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or ``repro``.
+
+    python3 chip_smoke.py --times-only [--src DIR]
+
+runs phases 1 and 4 alone against the ``repro_torch`` package under
+``DIR`` (default ``src`` here), for instance an unpacked older commit, so
+that two versions of the kernels can be timed in turns on one card;
+its last line is ``{"times": {...}}``.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -184,15 +196,26 @@ PATHS = {
 RECONSTRUCT = ["petersen", "queen5_5"]
 # (instance, k) whose largest level supplies the timing inputs
 TIMING_SHAPES = [("queen6_6", 25), ("queen7_7", 30)]
+# chunk widths of the engine: ``block`` and ``SMALL_BLOCK``
+TIMING_B = (2048, 128)
+# calls captured in the CUDA graph that times a kernel on the device, and
+# untimed calls before any timing
+GRAPH_CALLS = 50
+WARMUP = 5
 PROFILE = ("queen7_7", "bloom+mmw")
 DEVICE = "cuda"
 SWEEP_N = (3, 17, 31, 32, 33, 36, 48, 49, 64, 100)
 SWEEP_B = (1, 7, 128, 2048)
+# word and lane edges up to W = 8, at the engine's chunk widths
+EDGE_N = (65, 256)
+EDGE_B = (1, 128, 2048)
 WAVEFRONT_FLAGS = [(False, False), (True, False), (False, True),
                    (True, True)]
 MMW_N = (3, 17, 31, 33, 48, 64, 100)
 BLOOM_CASES = [(64, 3), (64, 17), (1 << 14, 3), (1 << 14, 17),
                (1 << 24, 17)]
+# probe counts: one, and groups past one warp
+BLOOM_K_EDGES = [(64, 1), (1 << 14, 33), (64, 64), (1 << 24, 64)]
 BLOOM_B = (1, 2048, 2048 * 49)
 M_BITS = 1 << 24            # the solver's default filter
 K_HASHES = 17
@@ -235,7 +258,7 @@ def smi_line():
 
 
 def cuda_time_ms(torch, fn, iters=100):
-    for _ in range(5):
+    for _ in range(WARMUP):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -248,6 +271,31 @@ def cuda_time_ms(torch, fn, iters=100):
     return start.elapsed_time(end) / iters
 
 
+def ptxas_rows(text):
+    """(kernel<template args>, registers, stack bytes, spill bytes) for
+    each entry function in nvcc's ``-Xptxas -v`` report."""
+    rows, name, stack, spill = [], None, 0, 0
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            mangled = m.group(1)
+            base = re.search(r"([a-z]+_kernel)", mangled)
+            args = re.findall(r"L[ib](\d+)E", mangled)
+            name = (base.group(1) if base else mangled) + (
+                f"<{','.join(args)}>" if args else "")
+            stack = spill = 0
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores",
+                      line)
+        if m:
+            stack, spill = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            rows.append((name, int(m.group(1)), stack, spill))
+            name = None
+    return rows
+
+
 def phase_device(build):
     line = smi_line()
     log(f"device: {line}")
@@ -256,9 +304,9 @@ def phase_device(build):
     build_s = time.perf_counter() - t0
     log(f"build: {len(reports)} kernel source(s) in {build_s:.1f} s")
     for name, text in reports.items():
-        for row in text.splitlines():
-            if "registers" in row or "spill" in row or "smem" in row:
-                log(f"  ptxas {name}: {row.strip()}")
+        for kernel, regs, stack, spill in ptxas_rows(text):
+            log(f"  ptxas {name}: {kernel}: {regs} registers, {stack} bytes "
+                f"stack, {spill} bytes spilled")
     return line
 
 
@@ -293,24 +341,38 @@ def same(torch, got, want):
         max_abs_err(torch, got, want)
 
 
+def shape_cases():
+    """(n, B, all rows invalid) of the kernels' sweeps: every n with every
+    B, the edge n at the chunk widths, and a chunk with no valid row."""
+    cases = [(n, b, False) for n in SWEEP_N for b in SWEEP_B]
+    cases += [(n, b, False) for n in EDGE_N for b in EDGE_B]
+    cases += [(n, 128, True) for n in (32, 33, 64) + EDGE_N]
+    return cases
+
+
 def check_wavefront(torch, np, bitset, graph, kern):
     worst = 0
     for use_mmw, use_simp in WAVEFRONT_FLAGS:
         flags = dict(use_mmw=use_mmw, use_simplicial=use_simp)
-        for n in SWEEP_N:
-            for b in SWEEP_B:
-                args = random_inputs(torch, np, bitset, graph, n, b,
-                                     seed=1000 * n + b, device=DEVICE)
-                ok, err = same(torch,
-                               kern.wavefront_expand(*args, n=n, **flags),
-                               kern.wavefront_ref(*args, n=n, **flags))
-                worst = max(worst, err)
-                check(ok, f"wavefront kernel != plain version at n={n} "
-                          f"B={b} flags={flag_name(use_mmw, use_simp)} "
-                          f"(max abs err {err})")
+        for n, b, none_valid in shape_cases():
+            adj, states, valid, k, allowed = random_inputs(
+                torch, np, bitset, graph, n, b, seed=1000 * n + b,
+                device=DEVICE)
+            if none_valid:
+                valid = torch.zeros_like(valid)
+            args = (adj, states, valid, k, allowed)
+            got = kern.wavefront_expand(*args, n=n, **flags)
+            ok, err = same(torch, got,
+                           kern.wavefront_ref(*args, n=n, **flags))
+            worst = max(worst, err)
+            check(ok and not (none_valid and bool(got[1].any())),
+                  f"wavefront kernel != plain version at n={n} B={b} "
+                  f"flags={flag_name(use_mmw, use_simp)} all-invalid="
+                  f"{none_valid} (max abs err {err})")
     log(f"kernels: wavefront bit-identical to wavefront_ref under flags "
         f"{[flag_name(*f) for f in WAVEFRONT_FLAGS]} over n={list(SWEEP_N)}"
-        f" x B={list(SWEEP_B)}")
+        f" x B={list(SWEEP_B)}, n={list(EDGE_N)} x B={list(EDGE_B)}, and "
+        f"chunks of 128 rows with no valid row")
     return worst
 
 
@@ -335,9 +397,13 @@ def check_mmw(torch, np, bitset, graph, components, kern):
     return worst
 
 
-def bloom_batch(torch, np, b, w, seed):
-    """B rows of W random words, about 30% of them copies of an earlier
-    row, about 10% invalid."""
+BLOOM_KINDS = ("random", "none valid", "one row")
+
+
+def bloom_batch(torch, np, b, w, seed, kind="random"):
+    """B rows of W random words: ``random`` has about 30% of them copies
+    of an earlier row and about 10% invalid; ``none valid`` the same rows
+    with no valid one; ``one row`` the first row B times, all valid."""
     rng = np.random.RandomState(seed)
     states = rng.randint(0, 2**32, size=(b, w), dtype=np.uint64).astype(
         np.uint32)
@@ -346,44 +412,58 @@ def bloom_batch(torch, np, b, w, seed):
     for i in np.nonzero(dup)[0]:
         states[i] = states[src[i]]
     valid = rng.rand(b) < 0.9
+    if kind == "none valid":
+        valid[:] = False
+    elif kind == "one row":
+        states[:] = states[0]
+        valid[:] = True
     return (torch.from_numpy(states.view(np.int32).copy()).to(DEVICE),
             torch.from_numpy(valid).to(DEVICE))
 
 
 def check_bloom(torch, np, kern):
+    """Every (m_bits, k) case over every batch size and kind, into one
+    filter per case carried from batch to batch; at 64 bits every batch
+    of more than a few rows has rows that share probe bits."""
     worst = 0
-    for m_bits, k in BLOOM_CASES:
+    for m_bits, k in BLOOM_CASES + BLOOM_K_EDGES:
         filt = kern.make_filter_words(m_bits, device=DEVICE)
         for b in BLOOM_B:
-            states, valid = bloom_batch(torch, np, b, 2, seed=m_bits + b + k)
-            want = kern.bloom_insert_ref(filt.clone(), states, valid,
-                                         m_bits=m_bits, k_hashes=k)
-            got = kern.bloom_insert(filt, states, valid, m_bits=m_bits,
-                                    k_hashes=k)
-            ok, err = same(torch, got, want)
-            worst = max(worst, err)
-            check(ok, f"bloom kernel != plain version at m_bits={m_bits} "
-                      f"k={k} B={b} (max abs err {err})")
+            for kind in BLOOM_KINDS:
+                states, valid = bloom_batch(torch, np, b, 2,
+                                            seed=m_bits + b + k, kind=kind)
+                want = kern.bloom_insert_ref(filt.clone(), states, valid,
+                                             m_bits=m_bits, k_hashes=k)
+                got = kern.bloom_insert(filt, states, valid, m_bits=m_bits,
+                                        k_hashes=k)
+                ok, err = same(torch, got, want)
+                worst = max(worst, err)
+                check(ok, f"bloom kernel != plain version at m_bits="
+                          f"{m_bits} k={k} B={b} batch={kind} (max abs err "
+                          f"{err})")
     log(f"kernels: bloom bit-identical to bloom_insert_ref (was_new and "
         f"filter words, filter carried across batches) over "
-        f"(m_bits, k)={BLOOM_CASES} x B={list(BLOOM_B)}")
+        f"(m_bits, k)={BLOOM_CASES + BLOOM_K_EDGES} x B={list(BLOOM_B)} x "
+        f"batches {list(BLOOM_KINDS)}")
     return worst
 
 
 def check_expand(torch, np, bitset, graph, kern):
     worst = 0
-    for n in SWEEP_N:
-        for b in SWEEP_B:
-            adj, states, _, _, _ = random_inputs(
-                torch, np, bitset, graph, n, b, seed=3000 * n + b,
-                device=DEVICE)
-            ok, err = same(torch, [kern.expand_degrees(adj, states, n=n)],
-                           [kern.expand_degrees_ref(adj, states, n=n)])
-            worst = max(worst, err)
-            check(ok, f"expand kernel != plain version at n={n} B={b} "
-                      f"(max abs err {err})")
+    for n, b, none_valid in shape_cases():
+        if none_valid:            # the expand kernel has no valid mask
+            continue
+        adj, states, _, _, _ = random_inputs(
+            torch, np, bitset, graph, n, b, seed=3000 * n + b,
+            device=DEVICE)
+        ok, err = same(torch, [kern.expand_degrees(adj, states, n=n)],
+                       [kern.expand_degrees_ref(adj, states, n=n)])
+        worst = max(worst, err)
+        check(ok, f"expand kernel != plain version at n={n} B={b} "
+                  f"(max abs err {err})")
     log(f"kernels: expand bit-identical to expand_degrees_ref over "
-        f"n={list(SWEEP_N)} x B={list(SWEEP_B)}")
+        f"n={list(SWEEP_N)} x B={list(SWEEP_B)} and n={list(EDGE_N)} x "
+        f"B={list(EDGE_B)}")
     return worst
 
 
@@ -400,6 +480,13 @@ def phase_kernels(torch, np, bitset, graph, components, kern):
 def reset_counts(ops):
     for mod in ops.values():
         mod.LAUNCHES = 0
+    ops["wavefront"].LAUNCHES_BY_B.clear()
+
+
+def widths(ops):
+    """The wavefront kernel's launches by chunk width, widest first."""
+    return dict(sorted(ops["wavefront"].LAUNCHES_BY_B.items(),
+                       reverse=True))
 
 
 def read_counts(ops):
@@ -422,8 +509,9 @@ def check_solve(res, name, want, golden):
 
 def phase_main_paths(torch, graph, solver, golden, ops):
     """Each path with its launch counts set to 0 just before it and read
-    just after; returns path -> counts and the solves' walls."""
-    counts, walls = {}, {}
+    just after; returns path -> counts, path -> the wavefront kernel's
+    launches by chunk width, and the solves' walls."""
+    counts, by_width, walls = {}, {}, {}
     for path, (kw, expected, needed) in PATHS.items():
         reset_counts(ops)
         for name in MAIN_PATH:
@@ -440,10 +528,12 @@ def phase_main_paths(torch, graph, solver, golden, ops):
                 f"expanded={res.expanded} launches={launched} "
                 f"wall={wall:.3f} s states/s={res.expanded / wall:.0f}")
         counts[path] = read_counts(ops)
+        by_width[path] = widths(ops)
         for kernel in needed:
             check(counts[path][kernel] > 0,
                   f"path {path}: the {kernel} kernel never launched")
-        log(f"path [{path}]: launches {counts[path]}")
+        log(f"path [{path}]: launches {counts[path]}; wavefront launches "
+            f"by chunk width {by_width[path]}")
 
     reset_counts(ops)
     for name in RECONSTRUCT:
@@ -458,9 +548,12 @@ def phase_main_paths(torch, graph, solver, golden, ops):
         log(f"reconstruct {name}: width={res.width} order verified "
             f"(replays at {replay})")
     counts["reconstruct"] = read_counts(ops)
+    by_width["reconstruct"] = widths(ops)
     check(counts["reconstruct"]["wavefront"] > 0,
           "reconstruction never launched the wavefront kernel")
-    return counts, walls
+    log(f"path [reconstruct]: launches {counts['reconstruct']}; wavefront "
+        f"launches by chunk width {by_width['reconstruct']}")
+    return counts, by_width, walls
 
 
 def timing_inputs(torch, np, bitset, graph, preprocess, solver, batch,
@@ -532,85 +625,155 @@ def bloom_bound(torch, bloom, states, valid, m_bits, k):
     return bound(nbytes, ops) + (nbytes, ops)
 
 
-def time_pair(torch, fn, ref):
-    return cuda_time_ms(torch, fn), cuda_time_ms(torch, ref, iters=20)
+def device_ms(torch, fn, calls=GRAPH_CALLS, reset=None, replays=3):
+    """Device time per call of the kernels that ``fn`` launches: ``calls``
+    calls captured in one CUDA graph, the graph replayed ``replays``
+    times with CUDA events around each replay, the fastest replay over
+    ``calls``.  The wrapper's host work is left out; the gaps between
+    the graph's kernels are in.  ``reset`` restores the inputs that a
+    call changes before each replay."""
+    for _ in range(WARMUP):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(calls):
+            fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    best = float("inf")
+    for _ in range(replays):
+        if reset is not None:
+            reset()
+        torch.cuda.synchronize()
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        best = min(best, start.elapsed_time(end) / calls)
+    del graph
+    return best
+
+
+def kernel_times(torch, fn, ref, reset=None):
+    """(device ms per call by graph replay, ms per wrapper call by CUDA
+    events, plain version's ms per call by CUDA events)."""
+    times = [device_ms(torch, fn, reset=reset)]
+    for f, iters in ((fn, 100), (ref, 20)):
+        if reset is not None:
+            reset()
+        times.append(cuda_time_ms(torch, f, iters=iters))
+    return tuple(times)
+
+
+class FreshFilters:
+    """Empty default-size filters handed out in turn, one per call, so
+    that every timed Bloom call finds the filter as a level's first chunk
+    does; ``reset`` empties them all and starts the turn again."""
+
+    def __init__(self, bl, count):
+        self.filters = [bl.make_filter_words(M_BITS, device=DEVICE)
+                        for _ in range(count)]
+        self.turn = 0
+
+    def __call__(self):
+        f = self.filters[self.turn % len(self.filters)]
+        self.turn += 1
+        return f
+
+    def reset(self):
+        for f in self.filters:
+            f.zero_()
+        self.turn = 0
+
+
+def time_wavefront(torch, bitset, components, wf, shape, k, args, n, live):
+    adj, states, valid, _kk, allowed = args
+    b, w = states.shape
+    entries = []
+    for use_mmw, use_simp in WAVEFRONT_FLAGS:
+        flags = dict(use_mmw=use_mmw, use_simplicial=use_simp)
+        ok, _ = same(torch, wf.wavefront_expand(*args, n=n, **flags),
+                     wf.wavefront_ref(*args, n=n, **flags))
+        name = flag_name(use_mmw, use_simp)
+        check(ok, f"wavefront kernel != plain version on {shape} states, "
+                  f"B={b}, flags {name}")
+        dev, ms, plain = kernel_times(
+            torch, lambda: wf.wavefront_expand(*args, n=n, **flags),
+            lambda: wf.wavefront_ref(*args, n=n, **flags))
+        pruned = 0
+        if use_mmw or use_simp:
+            _, feas = wf.wavefront_ref(*args, n=n)
+            pruned = int(feas.any(dim=1).sum())
+        bms, by, nbytes, ops = wavefront_bound(
+            bitset, components, adj, states, valid, allowed, n, pruned)
+        log(f"time wavefront[{name}] {shape} k={k}: B={b} (live {live}) "
+            f"n={n} W={w}: device {dev:.4f} ms, wrapper {ms:.4f} ms, plain "
+            f"{plain:.4f} ms, bound {bms:.6f} ms by {by} ({nbytes} bytes, "
+            f"{ops} word ops)")
+        entries.append(dict(shape=shape, B=b, flags=name, ms=dev,
+                            wrapper_ms=ms, plain_ms=plain, bound_ms=bms,
+                            bound_by=by))
+    return entries
 
 
 def phase_times(torch, np, bitset, graph, preprocess, solver, batch,
                 components, bloom, dedup, kern):
+    """Returns kernel -> timing entries; the wavefront kernel's first
+    entry is the main one (no flags, B=2048, the first shape)."""
     rows = {name: [] for name in KERNELS}
-    variants = []
     for shape, k in TIMING_SHAPES:
         adj, states, valid, kk, allowed, n, live = timing_inputs(
-            torch, np, bitset, graph, preprocess, solver, batch, shape, k)
+            torch, np, bitset, graph, preprocess, solver, batch, shape, k,
+            block=max(TIMING_B))
         b, w = states.shape
         wf = kern["wavefront"]
         args = (adj, states, valid, kk, allowed)
-        for use_mmw, use_simp in WAVEFRONT_FLAGS:
-            flags = dict(use_mmw=use_mmw, use_simplicial=use_simp)
-            ok, _ = same(torch, wf.wavefront_expand(*args, n=n, **flags),
-                         wf.wavefront_ref(*args, n=n, **flags))
-            check(ok, f"wavefront kernel != plain version on {shape} "
-                      f"states, flags {flag_name(use_mmw, use_simp)}")
-            ms, plain = time_pair(
-                torch, lambda: wf.wavefront_expand(*args, n=n, **flags),
-                lambda: wf.wavefront_ref(*args, n=n, **flags))
-            pruned = 0
-            if use_mmw or use_simp:
-                _, feas = wf.wavefront_ref(*args, n=n)
-                pruned = int(feas.any(dim=1).sum())
-            bms, by, nbytes, ops = wavefront_bound(
-                bitset, components, adj, states, valid, allowed, n, pruned)
-            name = flag_name(use_mmw, use_simp)
-            log(f"time wavefront[{name}] {shape} k={k}: B={b} (live {live})"
-                f" n={n} W={w}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-                f"bound {bms:.6f} ms by {by} ({nbytes} bytes, {ops} word "
-                f"ops)")
-            entry = dict(shape=shape, flags=name, ms=ms, plain_ms=plain,
-                         bound_ms=bms, bound_by=by)
-            if name == "none":
-                rows["wavefront"].append(entry)
-            else:
-                variants.append(entry)
+        for width in TIMING_B:
+            sub = (adj, states[:width].contiguous(),
+                   valid[:width].contiguous(), kk, allowed)
+            rows["wavefront"] += time_wavefront(
+                torch, bitset, components, wf, shape, k, sub, n,
+                min(live, width))
 
         _, reach = components.eliminated_degrees(adj, states, n)
         mm = kern["mmw"]
         ok, _ = same(torch, [mm.mmw_bounds(reach, states, kk, n=n)],
                      [mm.mmw_bounds_ref(reach, states, kk, n=n)])
         check(ok, f"mmw kernel != plain version on {shape} states")
-        ms, plain = time_pair(torch,
-                              lambda: mm.mmw_bounds(reach, states, kk, n=n),
-                              lambda: mm.mmw_bounds_ref(reach, states, kk,
-                                                        n=n))
+        dev, ms, plain = kernel_times(
+            torch, lambda: mm.mmw_bounds(reach, states, kk, n=n),
+            lambda: mm.mmw_bounds_ref(reach, states, kk, n=n))
         nbytes = 4 * reach.numel() + 4 * states.numel() + 4 * b
         ops = n * w * b        # one read of each reach word, counted low
         bms, by = bound(nbytes, ops)
-        log(f"time mmw {shape} k={k}: B={b} n={n} W={w}: kernel {ms:.4f} "
-            f"ms, plain {plain:.4f} ms, bound {bms:.6f} ms by {by} "
-            f"({nbytes} bytes, {ops} word ops)")
-        rows["mmw"].append(dict(shape=shape, ms=ms, plain_ms=plain,
-                                bound_ms=bms, bound_by=by))
+        log(f"time mmw {shape} k={k}: B={b} n={n} W={w}: device {dev:.4f} "
+            f"ms, wrapper {ms:.4f} ms, plain {plain:.4f} ms, bound "
+            f"{bms:.6f} ms by {by} ({nbytes} bytes, {ops} word ops)")
+        rows["mmw"].append(dict(shape=shape, B=b, ms=dev, wrapper_ms=ms,
+                                plain_ms=plain, bound_ms=bms, bound_by=by))
 
         ex = kern["expand"]
         ok, _ = same(torch, [ex.expand_degrees(adj, states, n=n)],
                      [ex.expand_degrees_ref(adj, states, n=n)])
         check(ok, f"expand kernel != plain version on {shape} states")
-        ms, plain = time_pair(torch,
-                              lambda: ex.expand_degrees(adj, states, n=n),
-                              lambda: ex.expand_degrees_ref(adj, states,
-                                                            n=n))
+        dev, ms, plain = kernel_times(
+            torch, lambda: ex.expand_degrees(adj, states, n=n),
+            lambda: ex.expand_degrees_ref(adj, states, n=n))
         nbytes = 4 * adj.numel() + 4 * states.numel() + 4 * b * n
         ops = (closure_ops(bitset, components, adj, states, n)
                + 2 * n * w * b)
         bms, by = bound(nbytes, ops)
-        log(f"time expand {shape} k={k}: B={b} n={n} W={w}: kernel "
-            f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bms:.6f} ms by {by}"
-            f" ({nbytes} bytes, {ops} word ops)")
-        rows["expand"].append(dict(shape=shape, ms=ms, plain_ms=plain,
-                                   bound_ms=bms, bound_by=by))
+        log(f"time expand {shape} k={k}: B={b} n={n} W={w}: device "
+            f"{dev:.4f} ms, wrapper {ms:.4f} ms, plain {plain:.4f} ms, bound "
+            f"{bms:.6f} ms by {by} ({nbytes} bytes, {ops} word ops)")
+        rows["expand"].append(dict(shape=shape, B=b, ms=dev, wrapper_ms=ms,
+                                   plain_ms=plain, bound_ms=bms,
+                                   bound_by=by))
 
         # the Bloom kernel's main-path input: one chunk's sorted children
-        # and their first-occurrence mask, into a default-size filter
+        # and their first-occurrence mask, into an empty default-size
+        # filter (a fresh one for every call)
         children, feas = wf.wavefront_expand(*args, n=n)
         skeys, svalid = dedup.sort_states(children.reshape(b * n, w),
                                           feas.reshape(b * n))
@@ -623,25 +786,31 @@ def phase_times(torch, np, bitset, graph, preprocess, solver, batch,
                      bl.bloom_insert_ref(filt.clone(), skeys, keep,
                                          m_bits=M_BITS, k_hashes=K_HASHES))
         check(ok, f"bloom kernel != plain version on {shape} children")
-        ms, plain = time_pair(
-            torch, lambda: bl.bloom_insert(filt, skeys, keep, m_bits=M_BITS,
-                                           k_hashes=K_HASHES),
-            lambda: bl.bloom_insert_ref(filt, skeys, keep, m_bits=M_BITS,
-                                        k_hashes=K_HASHES))
+        fresh = FreshFilters(bl, max(GRAPH_CALLS, 100 + WARMUP))
+        dev, ms, plain = kernel_times(
+            torch, lambda: bl.bloom_insert(fresh(), skeys, keep,
+                                           m_bits=M_BITS, k_hashes=K_HASHES),
+            lambda: bl.bloom_insert_ref(fresh(), skeys, keep,
+                                        m_bits=M_BITS, k_hashes=K_HASHES),
+            reset=fresh.reset)
+        del fresh
         bms, by, nbytes, ops = bloom_bound(torch, bloom, skeys, keep, M_BITS,
                                            K_HASHES)
         log(f"time bloom {shape} k={k}: B={b * n} rows ({int(keep.sum())} "
-            f"kept) W={w} m_bits={M_BITS} k_hashes={K_HASHES}: kernel "
-            f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bms:.6f} ms by {by} "
-            f"({nbytes} bytes, {ops} word ops)")
-        rows["bloom"].append(dict(shape=shape, ms=ms, plain_ms=plain,
+            f"kept) W={w} m_bits={M_BITS} k_hashes={K_HASHES}: device "
+            f"{dev:.4f} ms, wrapper {ms:.4f} ms, plain {plain:.4f} ms, bound "
+            f"{bms:.6f} ms by {by} ({nbytes} bytes, {ops} word ops)")
+        rows["bloom"].append(dict(shape=shape, B=b * n, ms=dev,
+                                  wrapper_ms=ms, plain_ms=plain,
                                   bound_ms=bms, bound_by=by))
-    return rows, variants
+    return rows
+
+
 
 
 # device-side names of the port's kernels (the rest is PyTorch's work)
 PORT_KERNEL_NAMES = ("wavefront_kernel", "mmw_kernel", "expand_kernel",
-                     "claim_kernel", "query_kernel", "insert_kernel")
+                     "claim_kernel", "resolve_kernel")
 
 
 def _device_us(evt):
@@ -695,13 +864,23 @@ def phase_split(torch, graph, preprocess, solver, walls):
         log("  the profiler reported no device time")
 
 
-def main():
+def parse_args(argv):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--times-only", action="store_true",
+                    help="run only the build and the kernel times")
+    ap.add_argument("--src", default=str(ROOT / "src"),
+                    help="directory that holds the repro_torch package")
+    return ap.parse_args(argv)
+
+
+def main(argv=None):
+    args = parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("[chip_smoke] FAIL: torch.cuda.is_available() is false",
               file=sys.stderr)
         return 1
-    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(pathlib.Path(args.src).resolve()))
     import numpy as np
     from repro_torch.core import (batch, bitset, bloom, components, dedup,
                                   graph, preprocess, solver)
@@ -714,15 +893,31 @@ def main():
     kern = {"wavefront": wavefront_kern, "mmw": mmw_kern,
             "bloom": bloom_kern, "expand": expand_kern}
     ops = {name: mod.ops for name, mod in kern.items()}
-    golden = json.loads((ROOT / "tests" / "golden_widths.json").read_text())
     t_start = time.perf_counter()
     smi = phase_device(build)
+    if args.times_only:
+        log(f"times of the kernels under {args.src}")
+        times = phase_times(torch, np, bitset, graph, preprocess, solver,
+                            batch, components, bloom, dedup, kern)
+        log(f"build and times in {time.perf_counter() - t_start:.1f} s")
+        print(smi, flush=True)
+        print(json.dumps({"times": times, "src": args.src}), flush=True)
+        return 0
+    golden = json.loads((ROOT / "tests" / "golden_widths.json").read_text())
+    t0 = time.perf_counter()
     worst = phase_kernels(torch, np, bitset, graph, components, kern)
-    counts, walls = phase_main_paths(torch, graph, solver, golden, ops)
-    times, variants = phase_times(torch, np, bitset, graph, preprocess,
-                                  solver, batch, components, bloom, dedup,
-                                  kern)
+    log(f"phase 2 (kernels) in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    counts, by_width, walls = phase_main_paths(torch, graph, solver, golden,
+                                               ops)
+    log(f"phase 3 (main paths) in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    times = phase_times(torch, np, bitset, graph, preprocess, solver, batch,
+                        components, bloom, dedup, kern)
+    log(f"phase 4 (times) in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     phase_split(torch, graph, preprocess, solver, walls)
+    log(f"phase 5 (split) in {time.perf_counter() - t0:.1f} s")
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         main_shape = times[name][0]
@@ -731,9 +926,11 @@ def main():
             launches=sum(c[name] for c in counts.values()),
             max_abs_err=worst[name], ms=main_shape["ms"],
             plain_ms=main_shape["plain_ms"], bound_ms=main_shape["bound_ms"],
-            bound_by=main_shape["bound_by"], library_ms=None)
+            bound_by=main_shape["bound_by"], library_ms=None,
+            wrapper_ms=main_shape["wrapper_ms"])
         if name == "wavefront":
-            entry["variants"] = [v for v in variants
+            entry["launches_by_width"] = by_width
+            entry["variants"] = [v for v in times[name][1:]
                                  if v["shape"] == main_shape["shape"]]
         kernels.append(entry)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")

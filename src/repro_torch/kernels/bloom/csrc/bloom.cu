@@ -11,26 +11,45 @@
 // (bloom_ref) bit for bit, duplicates and colliding rows included.
 //
 // The Pallas kernel gets row order from its sequential grid.  Here blocks
-// run in no order, so one call is three launches on the caller's stream:
-//   1. owner[p_ij] = min i over the valid rows that probe p_ij (atomicMin);
-//   2. was_new[i] = any_j (bit p_ij is 0 in the filter before the batch
-//      and owner[p_ij] == i): the bit was still zero when row i came,
-//      exactly when no earlier row probed it;
-//   3. atomicOr every probe bit into the filter and reset owner[p_ij] to
-//      INT_MAX for the next call.
+// run in no order.  A bit p is zero when row i comes exactly when it was
+// zero before the batch and no earlier valid row probes p, that is, when
+// i is the lowest valid row that probes p.  So one call is two launches on
+// the caller's stream:
+//   1. claim: for every probe whose bit is zero in the filter as the batch
+//      found it, owner[p] = min(owner[p], i) (atomicMin);
+//   2. resolve: a probe of row i whose bit is still zero and whose owner
+//      is i sets the bit (atomicOr) and resets owner[p] to INT_MAX;
+//      was_new[i] = any probe of row i did so.
+// Only the owner of p sets bit p in step 2, so a row never sees another
+// row's insert of the same batch, and every claimed owner entry is reset.
 // owner is an int32 scratch of m_bits entries that the wrapper keeps per
 // filter size and device, all INT_MAX between calls.
 //
 // What bounds it on this card: bytes.  Each valid row reads W words and
-// touches k_hashes random filter words and owner entries three times (32
-// bytes a sector); the hashes are a few dozen integer operations a row.
-// Design: one thread per row, recomputing the two hashes in each launch
-// (cheaper than storing k_hashes positions a row).
+// touches k_hashes random filter words (and owner entries where the bit
+// is zero); the hashes are a few dozen integer operations a row.  In
+// practice the latency of those random loads sets its time: the rows come
+// sorted from the dedup with the invalid ones last, so the valid rows
+// are a dense prefix of the batch, one to a few thousand rows.
+//
+// Design: one thread per row, on a grid of the blocks the card holds at
+// once (threads stride over the rows past that), with chunks of 32 rows
+// dealt to the blocks in turn, so that the dense prefix of valid rows
+// spreads over every SM in one wave.  A valid row computes its
+// probe positions for a group of 32 (k_hashes > 32 takes more groups),
+// with a mask in place of the modulo when m_bits is a power of two, then
+// issues the group's filter loads together, and in resolve the owner
+// loads of its zero bits together, so it waits for one round trip per
+// group and step rather than one per probe.
+#include <algorithm>
+#include <atomic>
 #include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
+
+constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ uint32_t rotl(uint32_t x, int r) {
   return (x << r) | (x >> (32 - r));
@@ -58,89 +77,143 @@ __device__ __forceinline__ uint32_t murmur3(const uint32_t* __restrict__ row,
 
 constexpr uint32_t kSeed1 = 0x9747B28Cu;
 constexpr uint32_t kSeed2 = 0x31415926u;
+constexpr int kGroup = 32;           // probes in flight per row
 
-struct Probes {
-  uint32_t h1, h2;
-  __device__ __forceinline__ uint32_t at(int j, uint32_t m_bits) const {
-    return (h1 + (uint32_t)j * h2) % m_bits;     // wraps at 2^32 first
+// Probe positions j0 .. j0 + kGroup - 1 of the row hashed to (h1, h2);
+// positions past k_hashes are not used.
+__device__ __forceinline__ void probe_group(uint32_t h1, uint32_t h2, int j0,
+                                            uint32_t m_bits,
+                                            uint32_t (&p)[kGroup]) {
+  const bool pow2 = (m_bits & (m_bits - 1)) == 0;
+#pragma unroll
+  for (int t = 0; t < kGroup; ++t) {
+    const uint32_t h = h1 + (uint32_t)(j0 + t) * h2;   // wraps at 2^32 first
+    p[t] = pow2 ? h & (m_bits - 1) : h % m_bits;
   }
-};
+}
 
-__device__ __forceinline__ Probes probes(const uint32_t* __restrict__ states,
-                                         int w, int i) {
-  const uint32_t* row = states + (size_t)i * w;
-  return Probes{murmur3(row, w, kSeed1), murmur3(row, w, kSeed2)};
+// The first row of this thread, and the stride to its next: chunks of 32
+// consecutive rows (one warp's) are dealt to the blocks in turn.
+__device__ __forceinline__ int first_row() {
+  const int chunk = (threadIdx.x / 32) * gridDim.x + blockIdx.x;
+  return chunk * 32 + threadIdx.x % 32;
+}
+__device__ __forceinline__ int row_stride() {
+  return gridDim.x * blockDim.x;
 }
 
 __global__ void claim_kernel(const uint32_t* __restrict__ states,
                              const uint8_t* __restrict__ valid, int w,
                              int n_rows, uint32_t m_bits, int k_hashes,
-                             int* __restrict__ owner) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_rows || !valid[i]) return;
-  const Probes p = probes(states, w, i);
-  for (int j = 0; j < k_hashes; ++j) atomicMin(owner + p.at(j, m_bits), i);
-}
-
-__global__ void query_kernel(const uint32_t* __restrict__ states,
-                             const uint8_t* __restrict__ valid, int w,
-                             int n_rows, uint32_t m_bits, int k_hashes,
                              const uint32_t* __restrict__ filt,
-                             const int* __restrict__ owner,
-                             uint8_t* __restrict__ was_new) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_rows) return;
-  bool fresh = false;
-  if (valid[i]) {
-    const Probes p = probes(states, w, i);
-    for (int j = 0; j < k_hashes; ++j) {
-      const uint32_t idx = p.at(j, m_bits);
-      const bool zero = ((filt[idx >> 5] >> (idx & 31)) & 1u) == 0u;
-      fresh |= zero && owner[idx] == i;
+                             int* __restrict__ owner) {
+  for (int i = first_row(); i < n_rows; i += row_stride()) {
+    if (!valid[i]) continue;
+    const uint32_t* row = states + (size_t)i * w;
+    const uint32_t h1 = murmur3(row, w, kSeed1);
+    const uint32_t h2 = murmur3(row, w, kSeed2);
+    for (int j0 = 0; j0 < k_hashes; j0 += kGroup) {
+      uint32_t p[kGroup], word[kGroup];
+      probe_group(h1, h2, j0, m_bits, p);
+#pragma unroll
+      for (int t = 0; t < kGroup; ++t)
+        word[t] = j0 + t < k_hashes ? filt[p[t] >> 5] : kFull;
+#pragma unroll
+      for (int t = 0; t < kGroup; ++t)
+        if (!((word[t] >> (p[t] & 31)) & 1u)) atomicMin(owner + p[t], i);
     }
   }
-  was_new[i] = fresh ? 1 : 0;
 }
 
-__global__ void insert_kernel(const uint32_t* __restrict__ states,
-                              const uint8_t* __restrict__ valid, int w,
-                              int n_rows, uint32_t m_bits, int k_hashes,
-                              uint32_t* __restrict__ filt,
-                              int* __restrict__ owner) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_rows || !valid[i]) return;
-  const Probes p = probes(states, w, i);
-  for (int j = 0; j < k_hashes; ++j) {
-    const uint32_t idx = p.at(j, m_bits);
-    atomicOr(filt + (idx >> 5), 1u << (idx & 31));
-    owner[idx] = INT_MAX;
+// filt is read and set here, so it is not read through the read-only
+// path: a stale zero only costs an owner load, and a bit that a thread
+// sees set was set by p's owner.
+__global__ void resolve_kernel(const uint32_t* __restrict__ states,
+                               const uint8_t* __restrict__ valid, int w,
+                               int n_rows, uint32_t m_bits, int k_hashes,
+                               uint32_t* filt, int* owner,
+                               uint8_t* __restrict__ was_new) {
+  for (int i = first_row(); i < n_rows; i += row_stride()) {
+    bool fresh = false;
+    if (valid[i]) {
+      const uint32_t* row = states + (size_t)i * w;
+      const uint32_t h1 = murmur3(row, w, kSeed1);
+      const uint32_t h2 = murmur3(row, w, kSeed2);
+      for (int j0 = 0; j0 < k_hashes; j0 += kGroup) {
+        uint32_t p[kGroup], word[kGroup];
+        probe_group(h1, h2, j0, m_bits, p);
+#pragma unroll
+        for (int t = 0; t < kGroup; ++t)
+          word[t] = j0 + t < k_hashes ? filt[p[t] >> 5] : kFull;
+        int own[kGroup];
+#pragma unroll
+        for (int t = 0; t < kGroup; ++t)
+          own[t] = ((word[t] >> (p[t] & 31)) & 1u) ? INT_MAX : owner[p[t]];
+#pragma unroll
+        for (int t = 0; t < kGroup; ++t) {
+          if (own[t] == i) {
+            atomicOr(filt + (p[t] >> 5), 1u << (p[t] & 31));
+            owner[p[t]] = INT_MAX;
+            fresh = true;
+          }
+        }
+      }
+    }
+    was_new[i] = fresh ? 1 : 0;
   }
+}
+
+// Blocks of `threads` threads of `Kernel` that the device holds at once:
+// its SM count times the blocks per SM.  Asked of the runtime once per
+// kernel, device (below 64) and block size.
+template <auto Kernel>
+int resident_blocks(int threads) {
+  static std::atomic<unsigned long long> cached[64];   // threads << 32 | n
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  const unsigned long long got =
+      cached[dev & 63].load(std::memory_order_acquire);
+  if (got >> 32 == (unsigned long long)threads)
+    return (int)(got & 0xffffffffu);
+  int sms = 0, per_sm = 0;
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, Kernel, threads,
+                                                    0) != cudaSuccess)
+    return 0;
+  const int blocks = sms * per_sm;
+  cached[dev & 63].store((unsigned long long)threads << 32 | (unsigned)blocks,
+                         std::memory_order_release);
+  return blocks;
 }
 
 }  // namespace
 
-// Returns a cudaError_t: 0 when all three launches were accepted.
+// Returns a cudaError_t: 0 when both launches were accepted.  threads is
+// a multiple of 32.
 extern "C" int bloom_launch(const void* states, const void* valid, int w,
                             int n_rows, unsigned m_bits, int k_hashes,
                             void* filt, void* owner, void* was_new,
                             int threads, void* stream) {
   if (n_rows <= 0) return cudaSuccess;
+  if (threads <= 0 || threads % 32) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int blocks = (n_rows + threads - 1) / threads;
+  const int needed = (n_rows + threads - 1) / threads;
+  const int claim_blocks =
+      std::min(needed, resident_blocks<claim_kernel>(threads));
+  const int resolve_blocks =
+      std::min(needed, resident_blocks<resolve_kernel>(threads));
+  if (claim_blocks <= 0 || resolve_blocks <= 0) return cudaErrorInvalidValue;
   const uint32_t* s = static_cast<const uint32_t*>(states);
   const uint8_t* v = static_cast<const uint8_t*>(valid);
   int* own = static_cast<int*>(owner);
   uint32_t* f = static_cast<uint32_t*>(filt);
-  claim_kernel<<<blocks, threads, 0, st>>>(s, v, w, n_rows, m_bits, k_hashes,
-                                           own);
+  claim_kernel<<<claim_blocks, threads, 0, st>>>(s, v, w, n_rows, m_bits,
+                                                 k_hashes, f, own);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  query_kernel<<<blocks, threads, 0, st>>>(s, v, w, n_rows, m_bits, k_hashes,
-                                           f, own,
-                                           static_cast<uint8_t*>(was_new));
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  insert_kernel<<<blocks, threads, 0, st>>>(s, v, w, n_rows, m_bits,
-                                            k_hashes, f, own);
+  resolve_kernel<<<resolve_blocks, threads, 0, st>>>(
+      s, v, w, n_rows, m_bits, k_hashes, f, own,
+      static_cast<uint8_t*>(was_new));
   return cudaGetLastError();
 }

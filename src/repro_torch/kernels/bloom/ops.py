@@ -13,8 +13,8 @@ bits.
 A CUDA tensor launches the kernel; a CPU tensor takes the plain version
 ``bloom_insert_ref``.  Nothing else falls back: a failed build or launch
 raises.  Both update the filter in place and return it.  ``LAUNCHES``
-counts wrapper calls that ran the kernel (three launches each: claim,
-query, insert).
+counts wrapper calls that ran the kernel (two launches each: claim and
+resolve).
 """
 from __future__ import annotations
 
@@ -31,7 +31,7 @@ THREADS = 256
 INT32_MAX = (1 << 31) - 1
 
 # (device, m_bits) -> the kernel's owner scratch, all INT32_MAX between
-# calls (the kernel's last launch resets what it claimed)
+# calls (the kernel's second launch resets what it claimed)
 _OWNER: dict = {}
 
 _c = ctypes.c_void_p
@@ -49,7 +49,7 @@ def make_filter_words(m_bits: int, device=None) -> torch.Tensor:
 
 def bloom_insert_ref(filter_words, states, valid, *, m_bits: int,
                      k_hashes: int = bloom.DEFAULT_K):
-    """Plain PyTorch version of the kernel, the same three steps: row i
+    """Plain PyTorch version of the kernel, by the kernel's rule: row i
     owns a probe position when it is the first valid row to probe it, and
     is new when it owns a position whose bit was zero before the batch.
     Returns (was_new (B,) bool, filter_words updated in place)."""

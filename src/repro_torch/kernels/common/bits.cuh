@@ -8,9 +8,19 @@
 //
 // Layout: a set over n vertices is W 32-bit words (bit i in word i >> 5).
 // One warp works on one state.  Lane `lane` owns the rows
-// v = lane + 32 * r for r < W (n <= 32 * W), so per-row results fit in a
-// W-bit register mask.  Per-state matrices (n rows of W words) live in the
-// warp's slice of dynamic shared memory.
+// v = lane + 32 * r for r < W (n <= 32 * W): row v is bit `lane` of word
+// r, so a lane finds its own rows' bits at compile-time word indices, and
+// per-row results fit in a W-bit register mask.
+//
+// The closure, nb and reach keep the lane's W rows of W words in
+// registers (a `Rows<W>`).  Every product loops over the set bits j of S,
+// which is the same on all 32 lanes, so the loops are warp-uniform: each
+// step broadcasts row j (by __shfl_sync from its owner lane, or by one
+// shared-memory load that every lane makes at the same address) and ORs
+// it into the rows that have bit j, without a branch.  The MMW
+// contraction keeps its graph in registers the same way.  The simplicial
+// rule reads rows at random, one witness per lane, so the wavefront
+// kernel copies reach into shared memory for it.
 #pragma once
 
 #include <cstdint>
@@ -22,112 +32,131 @@ constexpr unsigned kFull = 0xffffffffu;
 // degree of an inactive vertex in the MMW loop (repro.core.mmw.BIG)
 constexpr unsigned kBig = 1u << 20;
 
+// The lane's rows: v[r][x] is word x of row lane + 32 r.
 template <int W>
-__device__ __forceinline__ void or_rows_of(const uint32_t* __restrict__ mask,
-                                           const uint32_t* __restrict__ rows,
-                                           uint32_t* acc) {
-  // acc |= OR_{j in mask} rows[j]
-#pragma unroll
-  for (int x = 0; x < W; ++x) {
-    uint32_t m = mask[x];
-    while (m) {
-      const int j = x * 32 + __ffs(m) - 1;
-      m &= m - 1;
-#pragma unroll
-      for (int y = 0; y < W; ++y) acc[y] |= rows[j * W + y];
-    }
-  }
+struct Rows {
+  uint32_t v[W][W];
+};
+
+// All ones if bit b of word is set, else 0.
+__device__ __forceinline__ uint32_t bit_mask(uint32_t word, int b) {
+  return 0u - ((word >> b) & 1u);
 }
 
-// Bit i of a register bitset.  Words are picked by a compile-time loop,
-// so the array stays in registers (a run-time index would put it in local
-// memory).
-template <int W>
-__device__ __forceinline__ bool has_bit(const uint32_t (&s)[W], int i) {
-  uint32_t word = 0u;
-#pragma unroll
-  for (int x = 0; x < W; ++x)
-    if (x == (i >> 5)) word = s[x];
-  return (word >> (i & 31)) & 1u;
+// Word x of the set {0, ..., n-1}.
+__device__ __forceinline__ uint32_t below(int n, int x) {
+  const int rem = n - 32 * x;
+  return rem >= 32 ? kFull : (rem > 0 ? (1u << rem) - 1u : 0u);
 }
 
-template <int W>
-__device__ __forceinline__ void set_bit(uint32_t (&s)[W], int i, bool on) {
-#pragma unroll
-  for (int x = 0; x < W; ++x)
-    if (x == (i >> 5)) {
-      if (on) s[x] |= 1u << (i & 31);
-      else s[x] &= ~(1u << (i & 31));
-    }
-}
-
-// Component closure of G[S] and the neighbourhood of each component:
+// Eliminated-graph rows of the lane's vertices under the state s:
 //   z  = (adj & S) | I on the rows i in S, 0 elsewhere
-//   z |= z.z   `steps` times (OR-AND semiring), double-buffered
-//   nb = z.adj
-// On return `zbuf` holds z and `tbuf` holds nb (the pointers are swapped
-// as the doubling goes).  Ends with __syncwarp().
+//   z  = reflexive-transitive closure of z (the components of G[S])
+//   nb[i]    = OR_{j in z[i]} adj[j]          neighbourhood of i's component
+//   reach[v] = adj[v] | OR_{i in adj[v] & S} nb[i]
+// Only vertices below n count as members of S.  The closure is Warshall's,
+// in place: for each pivot j in S in ascending order, every row with bit j
+// ORs in row j's current value.  The closure of G[S] is unique, so this
+// is the reference's ceil(log2 n) squarings z |= z.z bit for bit, in |S|
+// warp-uniform steps.  `s_adj` is the adjacency (n rows) in shared memory.
+// Returns reach in `reach` and deg_S(v) = |reach[v] \ S \ {v}| in `deg`.
 template <int W>
-__device__ void closure_nb(const uint32_t* __restrict__ s_adj,
-                           const uint32_t (&s)[W], int n, int steps,
-                           int lane, uint32_t*& zbuf, uint32_t*& tbuf) {
-  for (int i = lane; i < n; i += kWarp) {
-    const bool in_s = has_bit<W>(s, i);
+__device__ __forceinline__ void reach_rows(const uint32_t* __restrict__ s_adj,
+                                           const uint32_t (&s)[W], int n,
+                                           int lane, Rows<W>& reach,
+                                           int (&deg)[W]) {
+  uint32_t sn[W];                           // S restricted to 0..n-1
+#pragma unroll
+  for (int x = 0; x < W; ++x) sn[x] = s[x] & below(n, x);
+
+  Rows<W> z;
+#pragma unroll
+  for (int r = 0; r < W; ++r) {
+    const int v = lane + kWarp * r;
+    const uint32_t in_s = bit_mask(sn[r], lane);     // 0 for v >= n
 #pragma unroll
     for (int x = 0; x < W; ++x) {
-      uint32_t v = s_adj[i * W + x] & s[x];
-      if (x == (i >> 5)) v |= 1u << (i & 31);
-      zbuf[i * W + x] = in_s ? v : 0u;
+      uint32_t a = v < n ? s_adj[v * W + x] & sn[x] : 0u;
+      if (x == r) a |= 1u << lane;
+      z.v[r][x] = a & in_s;
     }
   }
-  __syncwarp();
-  for (int t = 0; t < steps; ++t) {
-    for (int i = lane; i < n; i += kWarp) {
-      uint32_t acc[W];
 #pragma unroll
-      for (int x = 0; x < W; ++x) acc[x] = zbuf[i * W + x];
-      or_rows_of<W>(zbuf + i * W, zbuf, acc);
+  for (int xj = 0; xj < W; ++xj) {
+    for (uint32_t m = sn[xj]; m; m &= m - 1) {       // pivot j = 32 xj + b
+      const int b = __ffs(m) - 1;
+      uint32_t zj[W];
 #pragma unroll
-      for (int x = 0; x < W; ++x) tbuf[i * W + x] = acc[x];
+      for (int y = 0; y < W; ++y) zj[y] = __shfl_sync(kFull, z.v[xj][y], b);
+#pragma unroll
+      for (int r = 0; r < W; ++r) {
+        const uint32_t sel = bit_mask(z.v[r][xj], b);
+#pragma unroll
+        for (int y = 0; y < W; ++y) z.v[r][y] |= sel & zj[y];
+      }
     }
-    __syncwarp();
-    uint32_t* tmp = zbuf;
-    zbuf = tbuf;
-    tbuf = tmp;
   }
-  for (int i = lane; i < n; i += kWarp) {
-    uint32_t acc[W];
-#pragma unroll
-    for (int x = 0; x < W; ++x) acc[x] = 0u;
-    or_rows_of<W>(zbuf + i * W, s_adj, acc);
-#pragma unroll
-    for (int x = 0; x < W; ++x) tbuf[i * W + x] = acc[x];
-  }
-  __syncwarp();
-}
 
-// reach[v] = adj[v] | OR_{i in adj[v] & S} nb[i]; returns
-// deg_S(v) = |reach[v] \ S \ {v}|.
-template <int W>
-__device__ __forceinline__ int reach_row(const uint32_t* __restrict__ s_adj,
-                                         const uint32_t* __restrict__ nb,
-                                         const uint32_t (&s)[W], int v,
-                                         uint32_t (&reach)[W]) {
-  uint32_t hop[W];
+  Rows<W> nb;
 #pragma unroll
-  for (int x = 0; x < W; ++x) {
-    reach[x] = s_adj[v * W + x];
-    hop[x] = reach[x] & s[x];
-  }
-  or_rows_of<W>(hop, nb, reach);
-  int deg = 0;
+  for (int r = 0; r < W; ++r)
 #pragma unroll
-  for (int x = 0; x < W; ++x) {
-    uint32_t q = reach[x] & ~s[x];
-    if (x == (v >> 5)) q &= ~(1u << (v & 31));
-    deg += __popc(q);
+    for (int y = 0; y < W; ++y) nb.v[r][y] = 0u;
+#pragma unroll
+  for (int xj = 0; xj < W; ++xj) {
+    for (uint32_t m = sn[xj]; m; m &= m - 1) {
+      const int j = 32 * xj + __ffs(m) - 1;
+      uint32_t aj[W];
+#pragma unroll
+      for (int y = 0; y < W; ++y) aj[y] = s_adj[j * W + y];
+#pragma unroll
+      for (int r = 0; r < W; ++r) {
+        const uint32_t sel = bit_mask(z.v[r][xj], j & 31);
+#pragma unroll
+        for (int y = 0; y < W; ++y) nb.v[r][y] |= sel & aj[y];
+      }
+    }
   }
-  return deg;
+
+#pragma unroll
+  for (int r = 0; r < W; ++r) {
+    const int v = lane + kWarp * r;
+#pragma unroll
+    for (int y = 0; y < W; ++y) reach.v[r][y] = v < n ? s_adj[v * W + y] : 0u;
+  }
+#pragma unroll
+  for (int xi = 0; xi < W; ++xi) {
+    uint32_t hop[W];                         // word xi of adj[v] & S
+#pragma unroll
+    for (int r = 0; r < W; ++r) {
+      const int v = lane + kWarp * r;
+      hop[r] = v < n ? s_adj[v * W + xi] & sn[xi] : 0u;
+    }
+    for (uint32_t m = sn[xi]; m; m &= m - 1) {       // i = 32 xi + b
+      const int b = __ffs(m) - 1;
+      uint32_t nbi[W];
+#pragma unroll
+      for (int y = 0; y < W; ++y) nbi[y] = __shfl_sync(kFull, nb.v[xi][y], b);
+#pragma unroll
+      for (int r = 0; r < W; ++r) {
+        const uint32_t sel = bit_mask(hop[r], b);
+#pragma unroll
+        for (int y = 0; y < W; ++y) reach.v[r][y] |= sel & nbi[y];
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < W; ++r) {
+    int d = 0;
+#pragma unroll
+    for (int y = 0; y < W; ++y) {
+      uint32_t q = reach.v[r][y] & ~s[y];
+      if (y == r) q &= ~(1u << lane);
+      d += __popc(q);
+    }
+    deg[r] = d;
+  }
 }
 
 // Simplicial collapse (repro.core.expand.simplicial_mask and
@@ -138,9 +167,9 @@ __device__ __forceinline__ int reach_row(const uint32_t* __restrict__ s_adj,
 // a simplicial candidate, only the lowest-index one stays feasible
 // (jnp.argmax's first True).  Returns the lane's new mask.
 template <int W>
-__device__ uint32_t simplicial_collapse(const uint32_t* __restrict__ rbuf,
-                                        const uint32_t (&s)[W], int n,
-                                        int lane, uint32_t feas) {
+__device__ __forceinline__ uint32_t simplicial_collapse(
+    const uint32_t* __restrict__ rbuf, const uint32_t (&s)[W], int n,
+    int lane, uint32_t feas) {
   unsigned first = kFull;
 #pragma unroll
   for (int r = 0; r < W; ++r) {
@@ -176,41 +205,53 @@ __device__ uint32_t simplicial_collapse(const uint32_t* __restrict__ rbuf,
   return ((int)(idx & 31u) == lane) ? (1u << (idx >> 5)) : 0u;
 }
 
-// Minor-min-width lower bound of one state (repro.core.mmw.mmw_bound),
-// run by the whole warp.  `reach` (n rows, shared or device memory) is
-// read once; `adjm` (n rows of shared memory, may alias nothing else the
-// warp reads) holds the contracted graph.  Each step contracts the
-// minimum-degree active vertex v into its minimum-degree neighbour u (v
-// itself when isolated); ties go to the lowest index, as jnp.argmin's,
-// by taking the warp minimum of (degree << 8) | index (n <= 256).  The
-// loop stops once the bound exceeds k or at most one vertex is active.
+// Row v of a warp's Rows, on every lane: the owner lane is v & 31 and the
+// slot v >> 5 (the same on all lanes, picked by a compile-time loop).
 template <int W>
-__device__ int mmw_warp(const uint32_t* __restrict__ reach,
-                        uint32_t* __restrict__ adjm, const uint32_t (&s)[W],
-                        int n, int k, int lane) {
+__device__ __forceinline__ void broadcast_row(const Rows<W>& a, int v,
+                                              uint32_t (&out)[W]) {
+#pragma unroll
+  for (int x = 0; x < W; ++x) {
+    uint32_t word = 0u;
+#pragma unroll
+    for (int r = 0; r < W; ++r)
+      if (r == (v >> 5)) word = a.v[r][x];
+    out[x] = __shfl_sync(kFull, word, v & 31);
+  }
+}
+
+// Minor-min-width lower bound of one state (repro.core.mmw.mmw_bound),
+// run by the whole warp on the lane's rows of reach (registers).  The
+// contracted graph stays in registers too, one row per lane and slot as
+// reach; rows v and u of a step are broadcast by __shfl_sync.  Each step
+// contracts the minimum-degree active vertex v into its minimum-degree
+// neighbour u (v itself when isolated); ties go to the lowest index, as
+// jnp.argmin's, by taking the warp minimum of (degree << 8) | index
+// (n <= 256).  The loop stops once the bound exceeds k or at most one
+// vertex is active.  It is not inlined: inlined into the wavefront
+// kernel, the loop ran a third slower on the card (H100, n = 36 and 49).
+template <int W>
+__device__ __noinline__ int mmw_warp(const Rows<W>& reach,
+                                     const uint32_t (&s)[W], int n, int k,
+                                     int lane) {
   uint32_t active[W];
   int nact = 0;
 #pragma unroll
   for (int x = 0; x < W; ++x) {
-    const int rem = n - 32 * x;
-    const uint32_t full =
-        rem >= 32 ? kFull : (rem > 0 ? (1u << rem) - 1u : 0u);
-    active[x] = full & ~s[x];
+    active[x] = below(n, x) & ~s[x];
     nact += __popc(active[x]);
   }
+  Rows<W> a;                         // the contracted graph
 #pragma unroll
   for (int r = 0; r < W; ++r) {
-    const int i = lane + kWarp * r;
-    if (i >= n) break;
-    const bool act = has_bit<W>(active, i);
+    const uint32_t act = bit_mask(active[r], lane);   // 0 for i >= n
 #pragma unroll
     for (int x = 0; x < W; ++x) {
-      uint32_t v = reach[i * W + x] & active[x];
-      if (x == (i >> 5)) v &= ~(1u << (i & 31));
-      adjm[i * W + x] = act ? v : 0u;
+      uint32_t v = reach.v[r][x] & active[x];
+      if (x == r) v &= ~(1u << lane);
+      a.v[r][x] = v & act;
     }
   }
-  __syncwarp();
 
   int lb = 0;
   while (nact > 1 && lb <= k) {
@@ -222,10 +263,10 @@ __device__ int mmw_warp(const uint32_t* __restrict__ reach,
       key[r] = kFull;
       if (i >= n) continue;
       unsigned d = kBig;
-      if (has_bit<W>(active, i)) {
+      if ((active[r] >> lane) & 1u) {
         d = 0;
 #pragma unroll
-        for (int x = 0; x < W; ++x) d += __popc(adjm[i * W + x]);
+        for (int x = 0; x < W; ++x) d += __popc(a.v[r][x]);
       }
       key[r] = (d << 8) | (unsigned)i;
       best = min(best, key[r]);
@@ -241,8 +282,7 @@ __device__ int mmw_warp(const uint32_t* __restrict__ reach,
     lb = max(lb, (int)min(second, kBig - 1));
 
     uint32_t vrow[W];
-#pragma unroll
-    for (int x = 0; x < W; ++x) vrow[x] = adjm[v * W + x];
+    broadcast_row<W>(a, v, vrow);
     int u = v;
     if (dv > 0) {
       unsigned bestn = kFull;
@@ -250,40 +290,39 @@ __device__ int mmw_warp(const uint32_t* __restrict__ reach,
       for (int r = 0; r < W; ++r) {
         const int i = lane + kWarp * r;
         if (i >= n) continue;
-        const unsigned dn = has_bit<W>(vrow, i) ? (key[r] >> 8) : kBig;
+        const unsigned dn = (vrow[r] >> lane) & 1u ? (key[r] >> 8) : kBig;
         bestn = min(bestn, (dn << 8) | (unsigned)i);
       }
       u = (int)(__reduce_min_sync(kFull, bestn) & 255u);
     }
+    uint32_t um[W], vm[W];                 // columns u and v
+#pragma unroll
+    for (int x = 0; x < W; ++x) {
+      um[x] = x == (u >> 5) ? 1u << (u & 31) : 0u;
+      vm[x] = x == (v >> 5) ? 1u << (v & 31) : 0u;
+    }
     uint32_t merged[W];
+    broadcast_row<W>(a, u, merged);
 #pragma unroll
     for (int x = 0; x < W; ++x)
-      merged[x] = (vrow[x] | adjm[u * W + x]) & active[x];
-    set_bit<W>(merged, u, false);
-    set_bit<W>(merged, v, false);
-    __syncwarp();                       // every lane has read rows v and u
+      merged[x] = (merged[x] | vrow[x]) & active[x] & ~(um[x] | vm[x]);
+    // every row: clear column u, set column v to its bit of merged; then
+    // row v becomes merged and row u empty
 #pragma unroll
     for (int r = 0; r < W; ++r) {
       const int i = lane + kWarp * r;
-      if (i >= n) break;
-      uint32_t row[W];
+      const uint32_t in_v = bit_mask(merged[r], lane);
+      const uint32_t is_v = i == v ? kFull : 0u;
+      const uint32_t keep = i == u ? 0u : kFull;
 #pragma unroll
-      for (int x = 0; x < W; ++x) row[x] = adjm[i * W + x];
-      set_bit<W>(row, u, false);                       // clear column u
-      set_bit<W>(row, v, has_bit<W>(merged, i));       // fix column v
-      if (i == v) {
-#pragma unroll
-        for (int x = 0; x < W; ++x) row[x] = merged[x];
+      for (int x = 0; x < W; ++x) {
+        const uint32_t row =
+            (a.v[r][x] & ~(um[x] | vm[x])) | (in_v & vm[x]);
+        a.v[r][x] = ((row & ~is_v) | (merged[x] & is_v)) & keep;
       }
-      if (i == u) {
-#pragma unroll
-        for (int x = 0; x < W; ++x) row[x] = 0u;
-      }
-#pragma unroll
-      for (int x = 0; x < W; ++x) adjm[i * W + x] = row[x];
     }
-    __syncwarp();
-    set_bit<W>(active, u, false);
+#pragma unroll
+    for (int x = 0; x < W; ++x) active[x] &= ~um[x];
     --nact;
   }
   return lb;

@@ -9,13 +9,14 @@
 //
 // What bounds it on this card: bytes, mostly the (B, n) int32 output
 // against B*W words of input; the closure is a few hundred word
-// operations per state on chip.  In practice launch latency and each
-// lane's serial walk over set bits set its time.
+// operations per state on chip.  In practice launch latency and the
+// length of each warp's dependent chain set its time.
 //
 // Design: the wavefront kernel's closure without its outputs: one warp per
-// state, the adjacency in shared memory once per block, z and nb in the
-// warp's 2*n*W words of dynamic shared memory, reach one row per lane in
-// registers.  Degrees are written with consecutive lanes on consecutive v.
+// state, the adjacency in shared memory once per block, and each lane's
+// rows of z, nb and reach in registers, computed by warp-uniform loops
+// over S (rt::reach_rows).  Degrees are written with consecutive lanes on
+// consecutive v.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -28,8 +29,7 @@ using rt::kWarp;
 template <int W>
 __global__ void expand_kernel(const uint32_t* __restrict__ adj,
                               const uint32_t* __restrict__ states, int n,
-                              int n_states, int steps,
-                              int32_t* __restrict__ deg_out) {
+                              int n_states, int32_t* __restrict__ deg_out) {
   extern __shared__ uint32_t smem[];
   const int lane = threadIdx.x % kWarp;
   const int warp = threadIdx.x / kWarp;
@@ -43,36 +43,27 @@ __global__ void expand_kernel(const uint32_t* __restrict__ adj,
   const int row = blockIdx.x * warps + warp;
   if (row >= n_states) return;
 
-  uint32_t* zbuf = smem + nw + warp * 2 * nw;
-  uint32_t* tbuf = zbuf + nw;
   uint32_t s[W];
 #pragma unroll
   for (int x = 0; x < W; ++x) s[x] = states[(size_t)row * W + x];
-
-  rt::closure_nb<W>(s_adj, s, n, steps, lane, zbuf, tbuf);
+  rt::Rows<W> reach;
+  int deg[W];
+  rt::reach_rows<W>(s_adj, s, n, lane, reach, deg);
 #pragma unroll
   for (int r = 0; r < W; ++r) {
     const int v = lane + kWarp * r;
-    if (v >= n) break;
-    uint32_t reach[W];
-    deg_out[(size_t)row * n + v] = rt::reach_row<W>(s_adj, tbuf, s, v, reach);
+    if (v < n) deg_out[(size_t)row * n + v] = deg[r];
   }
 }
 
 template <int W>
 cudaError_t launch(const void* adj, const void* states, int n, int n_states,
-                   int steps, int warps_per_block, void* deg,
-                   cudaStream_t stream) {
-  const size_t smem =
-      sizeof(uint32_t) * (size_t)n * W * (1 + 2 * (size_t)warps_per_block);
-  cudaError_t err = cudaFuncSetAttribute(
-      expand_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
+                   int warps_per_block, void* deg, cudaStream_t stream) {
+  const size_t smem = sizeof(uint32_t) * (size_t)n * W;   // <= 8 KB
   const int blocks = (n_states + warps_per_block - 1) / warps_per_block;
   expand_kernel<W><<<blocks, warps_per_block * kWarp, smem, stream>>>(
       static_cast<const uint32_t*>(adj), static_cast<const uint32_t*>(states),
-      n, n_states, steps, static_cast<int32_t*>(deg));
+      n, n_states, static_cast<int32_t*>(deg));
   return cudaGetLastError();
 }
 
@@ -82,14 +73,13 @@ extern "C" int expand_max_words() { return 8; }
 
 // Returns a cudaError_t: 0 on a clean launch.
 extern "C" int expand_launch(const void* adj, const void* states, int n,
-                             int w, int n_states, int steps,
-                             int warps_per_block, void* deg, void* stream) {
+                             int w, int n_states, int warps_per_block,
+                             void* deg, void* stream) {
   if (n_states <= 0) return cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define RT_CASE(WW)                                                        \
   case WW:                                                                 \
-    return launch<WW>(adj, states, n, n_states, steps, warps_per_block,    \
-                      deg, st);
+    return launch<WW>(adj, states, n, n_states, warps_per_block, deg, st);
   switch (w) {
     RT_CASE(1) RT_CASE(2) RT_CASE(3) RT_CASE(4)
     RT_CASE(5) RT_CASE(6) RT_CASE(7) RT_CASE(8)

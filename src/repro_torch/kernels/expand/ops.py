@@ -23,12 +23,14 @@ from repro_torch.kernels import build
 
 LAUNCHES = 0
 
-# states (warps) per thread block; each holds 2*n*W words of shared memory
-WARPS_PER_BLOCK = 8
+# states (warps) per thread block; the block holds the adjacency (n*W
+# words) in shared memory
+WARPS_PER_BLOCK = 4
 
 _c = ctypes.c_void_p
 _i = ctypes.c_int
-_ARGTYPES = [_c, _c, _i, _i, _i, _i, _i, _c, _c]
+# adj, states, n, w, n_states, warps_per_block, deg, stream
+_ARGTYPES = [_c, _c, _i, _i, _i, _i, _c, _c]
 
 
 def expand_degrees_ref(adj, states, *, n: int):
@@ -72,7 +74,6 @@ def expand_degrees(adj, states, *, n: int):
     deg = torch.empty((b, n), dtype=torch.int32, device=states.device)
     with torch.cuda.device(states.device):
         err = lib.expand_launch(adj.data_ptr(), states.data_ptr(), n, w, b,
-                                components.log2_ceil(max(n, 2)),
                                 WARPS_PER_BLOCK, deg.data_ptr(),
                                 torch.cuda.current_stream().cuda_stream)
     build.check_launch("expand", err, f"n={n}, W={w}, B={b}")

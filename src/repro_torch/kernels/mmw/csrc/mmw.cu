@@ -10,16 +10,17 @@
 // What bounds it on this card: the input, B*n*W words of reach, is read
 // once; each state then needs up to n-1 dependent contraction steps of
 // O(n*W) word operations and two or three warp-wide reductions.  At the
-// solver's shapes the byte bound is a few microseconds and the steps'
-// latency (not their operations) sets the time.
+// solver's shapes the byte bound is a fraction of a microsecond and the
+// steps' latency (not their operations) sets the time.
 //
 // Design: one warp per state, several states per block.  The Pallas
 // kernel runs a static n-1 steps with done-masks; here each warp leaves
-// its loop as soon as its own bound exceeds k or one vertex is left.  The
-// warp reads its state's reach rows once from device memory, masked, into
-// its n*W words of dynamic shared memory, and contracts them there.
-// Argmins are warp minima of (degree << 8) | index, which break ties to
-// the lowest index as jnp.argmin does.
+// its loop as soon as its own bound exceeds k or one vertex is left.  Each
+// lane reads its rows of the state's reach (rows lane + 32 r) once from
+// device memory into registers, and the contraction runs there, rows v
+// and u of each step broadcast by __shfl_sync; no shared memory.  Argmins
+// are warp minima of (degree << 8) | index, which break ties to the
+// lowest index as jnp.argmin does.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -33,18 +34,23 @@ template <int W>
 __global__ void mmw_kernel(const uint32_t* __restrict__ reach,
                            const uint32_t* __restrict__ states, int k, int n,
                            int n_states, int32_t* __restrict__ lb_out) {
-  extern __shared__ uint32_t smem[];
   const int lane = threadIdx.x % kWarp;
   const int warp = threadIdx.x / kWarp;
   const int warps = blockDim.x / kWarp;
   const int row = blockIdx.x * warps + warp;
   if (row >= n_states) return;
-  const int nw = n * W;
+  const uint32_t* mine = reach + (size_t)row * n * W;
   uint32_t s[W];
+  rt::Rows<W> rows;
 #pragma unroll
   for (int x = 0; x < W; ++x) s[x] = states[(size_t)row * W + x];
-  const int lb = rt::mmw_warp<W>(reach + (size_t)row * nw, smem + warp * nw,
-                                 s, n, k, lane);
+#pragma unroll
+  for (int r = 0; r < W; ++r) {
+    const int i = lane + kWarp * r;
+#pragma unroll
+    for (int x = 0; x < W; ++x) rows.v[r][x] = i < n ? mine[i * W + x] : 0u;
+  }
+  const int lb = rt::mmw_warp<W>(rows, s, n, k, lane);
   if (lane == 0) lb_out[row] = lb;
 }
 
@@ -52,12 +58,8 @@ template <int W>
 cudaError_t launch(const void* reach, const void* states, int k, int n,
                    int n_states, int warps_per_block, void* lb,
                    cudaStream_t stream) {
-  const size_t smem = sizeof(uint32_t) * (size_t)n * W * warps_per_block;
-  cudaError_t err = cudaFuncSetAttribute(
-      mmw_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
   const int blocks = (n_states + warps_per_block - 1) / warps_per_block;
-  mmw_kernel<W><<<blocks, warps_per_block * kWarp, smem, stream>>>(
+  mmw_kernel<W><<<blocks, warps_per_block * kWarp, 0, stream>>>(
       static_cast<const uint32_t*>(reach),
       static_cast<const uint32_t*>(states), k, n, n_states,
       static_cast<int32_t*>(lb));

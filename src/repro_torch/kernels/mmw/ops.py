@@ -21,7 +21,7 @@ from repro_torch.kernels import build
 
 LAUNCHES = 0
 
-# states (warps) per thread block; each holds n*W words of shared memory
+# states (warps) per thread block
 WARPS_PER_BLOCK = 8
 
 _c = ctypes.c_void_p

@@ -7,8 +7,7 @@
 // src/repro/kernels/common.py.  For every state row S (W words) over the
 // packed adjacency adj (n rows of W words) it computes:
 //
-//   z   = (adj & S) | I on the rows i in S, 0 elsewhere
-//   z  |= z.z   ceil(log2 max(n,2)) times (OR-AND semiring): closure of G[S]
+//   z   = closure of the components of G[S] (rows of S only)
 //   nb  = z.adj                     neighbourhood of i's S-component
 //   reach[v] = adj[v] | OR_{i in adj[v] & S} nb[i]
 //   deg[v]   = popcount(reach[v] & ~S & ~{v})
@@ -22,23 +21,23 @@
 // words of input); the closure is a few hundred word operations per state
 // on data that stays on chip.  At the solver's shapes (B = 2048, n <= 64,
 // W <= 2) a call moves under a megabyte, about 0.2-0.3 us at 3.35 TB/s, so
-// in practice launch latency and each lane's serial walk over set bits
-// set its time.  The MMW prune adds up to n-1 dependent contraction steps
-// per state, each two or three warp-wide min reductions; it runs only for
-// rows that still have a feasible candidate.
+// in practice launch latency and the length of each warp's dependent chain
+// set its time.
 //
-// Design: one warp per state, several states per block.  The adjacency is
-// loaded into shared memory once per block.  Each warp keeps its state's
-// z and a second buffer (the doubling target, then nb) in dynamic shared
-// memory: 2*n*W words per state.  Lanes stride over the rows; each row's
-// OR-AND product walks the set bits of its mask with __ffs.  The closure
-// is double-buffered, so every step reads the previous step's rows, as the
-// reference does.  Without pruning, reach stays one row per lane in
-// registers.  With a pruning rule, reach is written into the z buffer
-// (dead once nb exists) and MMW contracts its copy in the nb buffer (dead
-// once reach exists), so shared memory stays 2*n*W words per warp.
-// Feasibility is a W-bit register mask per lane.  Children are written
-// row-major with consecutive lanes on consecutive words.
+// Design: one warp per state, WARPS_PER_BLOCK states per block, the
+// adjacency in shared memory once per block.  Each lane keeps its W rows
+// of z, nb and reach in registers (rt::reach_rows in
+// ../../common/bits.cuh): the closure is Warshall's, one warp-uniform step
+// per vertex of S, with row j broadcast by __shfl_sync, and nb and reach
+// are uniform loops over S as well, so no lane waits on another's
+// popcount.  A row that is not valid writes its children and a zero
+// feasibility row and skips the rest.  The pruning rules run only for
+// rows that still have a feasible candidate.  MMW contracts a copy of
+// reach in registers (rt::mmw_warp); only the simplicial rule, which
+// reads witness rows at random, needs shared memory per warp: reach is
+// copied into the warp's n*W words.  Feasibility is a W-bit register
+// mask per lane.  Children are written row-major with consecutive lanes
+// on consecutive words.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -53,7 +52,7 @@ __global__ void wavefront_kernel(const uint32_t* __restrict__ adj,
                                  const uint32_t* __restrict__ states,
                                  const uint8_t* __restrict__ valid,
                                  const uint32_t* __restrict__ allowed,
-                                 int k, int n, int n_states, int steps,
+                                 int k, int n, int n_states,
                                  uint32_t* __restrict__ children,
                                  uint8_t* __restrict__ feasible) {
   extern __shared__ uint32_t smem[];
@@ -69,52 +68,45 @@ __global__ void wavefront_kernel(const uint32_t* __restrict__ adj,
   const int row = blockIdx.x * warps + warp;
   if (row >= n_states) return;
 
-  uint32_t* zbuf = smem + nw + warp * 2 * nw;
-  uint32_t* tbuf = zbuf + nw;
-
   uint32_t s[W];
-  uint32_t ok_v[W];
 #pragma unroll
-  for (int x = 0; x < W; ++x) {
-    s[x] = states[(size_t)row * W + x];
-    ok_v[x] = allowed[x];
-  }
+  for (int x = 0; x < W; ++x) s[x] = states[(size_t)row * W + x];
 
-  rt::closure_nb<W>(s_adj, s, n, steps, lane, zbuf, tbuf);
-  const uint32_t* nb = tbuf;
-
-  const bool row_valid = valid[row] != 0;
   uint32_t feas = 0u;        // bit r: row v = lane + 32 r is feasible
+  if (valid[row] != 0) {     // the same on every lane of the warp
+    rt::Rows<W> reach;
+    int deg[W];
+    rt::reach_rows<W>(s_adj, s, n, lane, reach, deg);
+#pragma unroll
+    for (int r = 0; r < W; ++r) {
+      const int v = lane + kWarp * r;
+      const bool out_s = !((s[r] >> lane) & 1u);
+      const bool ok = (allowed[r] >> lane) & 1u;
+      if (v < n && deg[r] <= k && out_s && ok) feas |= 1u << r;
+    }
+    // the rules change nothing in a row without a feasible candidate
+    if ((MMW || SIMP) && __any_sync(rt::kFull, feas != 0u)) {
+      if (SIMP) {
+        uint32_t* rbuf = smem + nw + warp * nw;
+#pragma unroll
+        for (int r = 0; r < W; ++r) {
+          const int v = lane + kWarp * r;
+          if (v < n) {
+#pragma unroll
+            for (int x = 0; x < W; ++x) rbuf[v * W + x] = reach.v[r][x];
+          }
+        }
+        __syncwarp();
+        feas = rt::simplicial_collapse<W>(rbuf, s, n, lane, feas);
+      }
+      if (MMW && rt::mmw_warp<W>(reach, s, n, k, lane) > k) feas = 0u;
+    }
+  }
+
 #pragma unroll
   for (int r = 0; r < W; ++r) {
     const int v = lane + kWarp * r;
-    if (v >= n) break;
-    uint32_t reach[W];
-    const int deg = rt::reach_row<W>(s_adj, nb, s, v, reach);
-    if (MMW || SIMP) {
-#pragma unroll
-      for (int x = 0; x < W; ++x) zbuf[v * W + x] = reach[x];
-    }
-    if (deg <= k && !rt::has_bit<W>(s, v) && rt::has_bit<W>(ok_v, v) &&
-        row_valid)
-      feas |= 1u << r;
-  }
-  if (MMW || SIMP) __syncwarp();
-
-  if (SIMP) feas = rt::simplicial_collapse<W>(zbuf, s, n, lane, feas);
-  if (MMW) {
-    // the bound of a row without feasible candidates is never read
-    if (__any_sync(rt::kFull, feas != 0u)) {
-      const int lb = rt::mmw_warp<W>(zbuf, tbuf, s, n, k, lane);
-      if (lb > k) feas = 0u;
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < W; ++r) {
-    const int v = lane + kWarp * r;
-    if (v >= n) break;
-    feasible[(size_t)row * n + v] = (feas >> r) & 1u;
+    if (v < n) feasible[(size_t)row * n + v] = (feas >> r) & 1u;
   }
 
   uint32_t* out = children + (size_t)row * nw;
@@ -130,21 +122,21 @@ __global__ void wavefront_kernel(const uint32_t* __restrict__ adj,
 template <int W, bool MMW, bool SIMP>
 cudaError_t launch(const void* adj, const void* states, const void* valid,
                    const void* allowed, int k, int n, int n_states,
-                   int steps, int warps_per_block, void* children,
-                   void* feasible, cudaStream_t stream) {
+                   int warps_per_block, void* children, void* feasible,
+                   cudaStream_t stream) {
+  // at most 40 KB (n = 256, W = 8, the simplicial rule, 4 warps), under
+  // the 48 KB a launch may take without cudaFuncSetAttribute; a launch
+  // that asks for more is refused and reported
+  const size_t per_warp = SIMP ? (size_t)n * W : 0;
   const size_t smem =
-      sizeof(uint32_t) * (size_t)n * W * (1 + 2 * (size_t)warps_per_block);
-  cudaError_t err = cudaFuncSetAttribute(
-      wavefront_kernel<W, MMW, SIMP>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
+      sizeof(uint32_t) * ((size_t)n * W + per_warp * warps_per_block);
   const int blocks = (n_states + warps_per_block - 1) / warps_per_block;
   wavefront_kernel<W, MMW, SIMP>
       <<<blocks, warps_per_block * kWarp, smem, stream>>>(
           static_cast<const uint32_t*>(adj),
           static_cast<const uint32_t*>(states),
           static_cast<const uint8_t*>(valid),
-          static_cast<const uint32_t*>(allowed), k, n, n_states, steps,
+          static_cast<const uint32_t*>(allowed), k, n, n_states,
           static_cast<uint32_t*>(children), static_cast<uint8_t*>(feasible));
   return cudaGetLastError();
 }
@@ -153,23 +145,21 @@ template <int W>
 cudaError_t launch_flags(bool mmw, bool simp, const void* adj,
                          const void* states, const void* valid,
                          const void* allowed, int k, int n, int n_states,
-                         int steps, int warps_per_block, void* children,
-                         void* feasible, cudaStream_t stream) {
+                         int warps_per_block, void* children, void* feasible,
+                         cudaStream_t stream) {
   if (mmw && simp)
     return launch<W, true, true>(adj, states, valid, allowed, k, n, n_states,
-                                 steps, warps_per_block, children, feasible,
-                                 stream);
+                                 warps_per_block, children, feasible, stream);
   if (mmw)
     return launch<W, true, false>(adj, states, valid, allowed, k, n,
-                                  n_states, steps, warps_per_block, children,
+                                  n_states, warps_per_block, children,
                                   feasible, stream);
   if (simp)
     return launch<W, false, true>(adj, states, valid, allowed, k, n,
-                                  n_states, steps, warps_per_block, children,
+                                  n_states, warps_per_block, children,
                                   feasible, stream);
   return launch<W, false, false>(adj, states, valid, allowed, k, n, n_states,
-                                 steps, warps_per_block, children, feasible,
-                                 stream);
+                                 warps_per_block, children, feasible, stream);
 }
 
 }  // namespace
@@ -179,7 +169,7 @@ extern "C" int wavefront_max_words() { return 8; }
 // Returns a cudaError_t: 0 on a clean launch.
 extern "C" int wavefront_launch(const void* adj, const void* states,
                                 const void* valid, const void* allowed, int k,
-                                int n, int w, int n_states, int steps,
+                                int n, int w, int n_states,
                                 int warps_per_block, int use_mmw,
                                 int use_simplicial, void* children,
                                 void* feasible, void* stream) {
@@ -189,8 +179,8 @@ extern "C" int wavefront_launch(const void* adj, const void* states,
 #define RT_CASE(WW)                                                         \
   case WW:                                                                  \
     return launch_flags<WW>(mmw, simp, adj, states, valid, allowed, k, n,   \
-                            n_states, steps, warps_per_block, children,     \
-                            feasible, st);
+                            n_states, warps_per_block, children, feasible,  \
+                            st);
   switch (w) {
     RT_CASE(1) RT_CASE(2) RT_CASE(3) RT_CASE(4)
     RT_CASE(5) RT_CASE(6) RT_CASE(7) RT_CASE(8)

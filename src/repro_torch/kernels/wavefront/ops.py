@@ -9,27 +9,33 @@ the Pallas kernel behind it.
 
 A CUDA tensor launches the kernel; a CPU tensor takes the plain version
 ``wavefront_ref``.  Nothing else falls back: a failed build or launch
-raises.  ``LAUNCHES`` counts kernel launches.
+raises.  ``LAUNCHES`` counts kernel launches, and ``LAUNCHES_BY_B`` the
+same launches by chunk width (rows B of ``states``).
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
 
-from repro_torch.core import components, expand
+from repro_torch.core import expand
 from repro_torch.core.backend import BackendCapabilityError
 from repro_torch.kernels import build
 
 LAUNCHES = 0
+LAUNCHES_BY_B: collections.Counter = collections.Counter()
 
-# states (warps) per thread block; each holds 2*n*W words of shared
-# memory, 136 KB per block at the largest W (8) and n (256)
-WARPS_PER_BLOCK = 8
+# states (warps) per thread block.  A block holds the adjacency (n*W words)
+# in shared memory; under the simplicial rule each warp adds n*W words, 40
+# KB per block at the largest W (8) and n (256)
+WARPS_PER_BLOCK = 4
 
 _c = ctypes.c_void_p
 _i = ctypes.c_int
-_ARGTYPES = [_c, _c, _c, _c, _i, _i, _i, _i, _i, _i, _i, _i, _c, _c, _c]
+# adj, states, valid, allowed, k, n, w, n_states, warps_per_block,
+# use_mmw, use_simplicial, children, feasible, stream
+_ARGTYPES = [_c, _c, _c, _c, _i, _i, _i, _i, _i, _i, _i, _c, _c, _c]
 
 
 def wavefront_ref(adj, states, valid, k, allowed, *, n: int,
@@ -88,18 +94,18 @@ def wavefront_expand(adj, states, valid, k, allowed, *, n: int,
     lib = _lib()
     if w > lib.wavefront_max_words():
         raise BackendCapabilityError(
-            f"the CUDA wavefront kernel holds n*W words per state in "
-            f"shared memory and supports W <= {lib.wavefront_max_words()} "
+            f"the CUDA wavefront kernel keeps a state's rows in registers "
+            f"and supports W <= {lib.wavefront_max_words()} "
             f"(n <= {32 * lib.wavefront_max_words()}); got n={n}, W={w}")
     children = torch.empty((b, n, w), dtype=torch.int32, device=states.device)
     feasible = torch.empty((b, n), dtype=torch.bool, device=states.device)
     with torch.cuda.device(states.device):
         err = lib.wavefront_launch(
             adj.data_ptr(), states.data_ptr(), valid.data_ptr(),
-            allowed.data_ptr(), int(k), n, w, b,
-            components.log2_ceil(max(n, 2)), WARPS_PER_BLOCK, int(use_mmw),
-            int(use_simplicial), children.data_ptr(), feasible.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+            allowed.data_ptr(), int(k), n, w, b, WARPS_PER_BLOCK,
+            int(use_mmw), int(use_simplicial), children.data_ptr(),
+            feasible.data_ptr(), torch.cuda.current_stream().cuda_stream)
     build.check_launch("wavefront", err, f"n={n}, W={w}, B={b}")
     LAUNCHES += 1
+    LAUNCHES_BY_B[b] += 1
     return children, feasible

@@ -59,6 +59,39 @@ def test_wavefront_kernel_matches_plain_version(dev, flags):
         assert torch.equal(gc, wc) and torch.equal(gf, wf), n
 
 
+EDGE_N = (32, 33, 64, 65, 256)
+EDGE_B = (1, 128, 2048)
+
+
+@pytest.mark.parametrize("flags", FLAGS,
+                         ids=["none", "mmw", "simplicial", "mmw+simplicial"])
+def test_wavefront_kernel_edge_shapes(dev, flags):
+    """Word and lane edges (n at and past 32 and 64, up to W = 8), one
+    state, a SMALL_BLOCK chunk and a full chunk, and a chunk with no valid
+    row."""
+    kw = dict(use_mmw=flags[0], use_simplicial=flags[1])
+    for n in EDGE_N:
+        for b in EDGE_B:
+            args = _inputs(n, b, seed=n + b, dev=dev)
+            gc, gf = wavefront_kernel.wavefront_expand(*args, n=n, **kw)
+            wc, wf = wavefront_kernel.wavefront_ref(*args, n=n, **kw)
+            assert torch.equal(gc, wc) and torch.equal(gf, wf), (n, b)
+        adj, states, valid, k, allowed = _inputs(n, 128, seed=n, dev=dev)
+        args = (adj, states, torch.zeros_like(valid), k, allowed)
+        gc, gf = wavefront_kernel.wavefront_expand(*args, n=n, **kw)
+        wc, wf = wavefront_kernel.wavefront_ref(*args, n=n, **kw)
+        assert torch.equal(gc, wc) and torch.equal(gf, wf) and not gf.any()
+
+
+def test_expand_kernel_edge_shapes(dev):
+    for n in EDGE_N:
+        for b in EDGE_B:
+            adj, states, _, _, _ = _inputs(n, b, seed=n + b, dev=dev)
+            assert torch.equal(
+                expand_kernel.expand_degrees(adj, states, n=n),
+                expand_kernel.expand_degrees_ref(adj, states, n=n)), (n, b)
+
+
 def test_mmw_kernel_matches_plain_version(dev):
     for n in (3, 17, 31, 33, 48, 64, 100):
         adj, states, valid, _, _ = _inputs(n, 37, seed=n, dev=dev)
@@ -98,11 +131,45 @@ def test_bloom_kernel_matches_plain_version(dev, m_bits, k):
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+def _bloom_batches(rng, b):
+    """Random rows with duplicates, a batch with no valid row, and one row
+    repeated across a whole batch (valid everywhere)."""
+    states = rng.randint(0, 2**32, size=(b, 2), dtype=np.uint64).astype(
+        np.uint32)
+    states[1::3] = states[::3][:len(states[1::3])]
+    yield states, rng.rand(b) < 0.9
+    yield states, np.zeros((b,), dtype=bool)
+    yield np.repeat(states[:1], b, axis=0), np.ones((b,), dtype=bool)
+
+
+@pytest.mark.parametrize("k", [1, 17, 33, 64])
+def test_bloom_kernel_probe_counts(dev, k):
+    """One probe, the default 17, and probe groups past one warp (33, 64),
+    at 64 bits (every batch collides), 2^14 and 2^24 bits, the filter
+    carried from batch to batch."""
+    for m_bits in (64, 1 << 14, 1 << 24):
+        rng = np.random.RandomState(m_bits + k)
+        filt = bloom_kernel.make_filter_words(m_bits, device=dev)
+        for b in (1, 300, 4096):
+            for states, valid in _bloom_batches(rng, b):
+                s = bitset.to_words(states, dev)
+                v = torch.from_numpy(valid).to(dev)
+                want = bloom_kernel.bloom_insert_ref(filt.clone(), s, v,
+                                                     m_bits=m_bits,
+                                                     k_hashes=k)
+                got = bloom_kernel.bloom_insert(filt, s, v, m_bits=m_bits,
+                                                k_hashes=k)
+                assert torch.equal(got[0], want[0]), (m_bits, b)
+                assert torch.equal(got[1], want[1]), (m_bits, b)
+
+
 def test_wrappers_count_their_launches(dev):
     args = _inputs(20, 8, seed=1, dev=dev)
     before = wavefront_kernel.ops.LAUNCHES
+    before_b = wavefront_kernel.ops.LAUNCHES_BY_B[8]
     wavefront_kernel.wavefront_expand(*args, n=20, use_mmw=True)
     assert wavefront_kernel.ops.LAUNCHES == before + 1
+    assert wavefront_kernel.ops.LAUNCHES_BY_B[8] == before_b + 1
     before = bloom_kernel.ops.LAUNCHES
     filt = bloom_kernel.make_filter_words(1 << 10, device=dev)
     bloom_kernel.bloom_insert(filt, args[1], args[2], m_bits=1 << 10,

@@ -178,8 +178,10 @@ def test_cpu_path_does_not_count_launches():
     n = 10
     _, _, adj, states, valid, allowed = _case(n, 3, seed=2)
     before = kernel_mod.ops.LAUNCHES
+    by_b = dict(kernel_mod.ops.LAUNCHES_BY_B)
     _port(kernel_mod.wavefront_expand, adj, states, valid, 3, allowed, n)
     assert kernel_mod.ops.LAUNCHES == before
+    assert dict(kernel_mod.ops.LAUNCHES_BY_B) == by_b
 
 
 @pytest.mark.cuda
@@ -198,3 +200,88 @@ def test_cuda_kernel_matches_plain_version():
         gc, gf = kernel_mod.wavefront_expand(*args, n=n)
         wc, wf = kernel_mod.wavefront_ref(*args, n=n)
         assert torch.equal(gc, wc) and torch.equal(gf, wf)
+
+
+def _warp_model(adj, s, n):
+    """The CUDA kernel's per-warp arithmetic (``rt::reach_rows``) in numpy
+    words: Warshall's closure over the set bits of S in ascending order,
+    then nb and reach as uniform loops over S.  adj (n, W) uint32, s (W,)
+    uint32 -> (z, reach (n, W) uint32, deg (n,) int)."""
+    w = adj.shape[1]
+    rows = 32 * w                           # lane + 32 r for r < W
+    a = np.zeros((rows, w), dtype=np.uint32)
+    a[:n] = adj
+    below = np.array([(1 << max(0, min(32, n - 32 * x))) - 1
+                      for x in range(w)], dtype=np.uint64).astype(np.uint32)
+    sn = s & below
+    pivots = [32 * x + b for x in range(w) for b in range(32)
+              if (int(sn[x]) >> b) & 1]
+
+    def bit(words, j):                      # bit j of every row, 0 or 1
+        return (words[:, j >> 5] >> np.uint32(j & 31)) & np.uint32(1)
+
+    in_s = np.array([(int(sn[v >> 5]) >> (v & 31)) & 1 for v in range(rows)],
+                    dtype=bool)
+    eye = np.zeros((rows, w), dtype=np.uint32)
+    for v in range(rows):
+        eye[v, v >> 5] = np.uint32(1 << (v & 31))
+    z = np.where(in_s[:, None], (a & sn[None]) | eye, np.uint32(0))
+    for j in pivots:                        # Warshall, in place
+        zj = z[j].copy()                    # the broadcast row
+        sel = np.uint32(0) - bit(z, j)
+        z |= sel[:, None] & zj[None]
+    nb = np.zeros_like(z)
+    for j in pivots:
+        nb |= (np.uint32(0) - bit(z, j))[:, None] & a[j][None]
+    hop = a & sn[None]
+    reach = a.copy()
+    for i in pivots:
+        reach |= (np.uint32(0) - bit(hop, i))[:, None] & nb[i][None]
+    q = reach & ~s[None] & ~eye
+    deg = np.array([sum(bin(int(x)).count("1") for x in row) for row in q])
+    return z[:n], reach[:n], deg[:n]
+
+
+def _model_states(n, seed):
+    """States over n vertices: empty, all but one vertex, random ones, and
+    (where n > 31) ones with bit 31 of a word set."""
+    rng = np.random.RandomState(seed)
+    sets = [set(), set(range(n)) - {n // 2}]
+    for _ in range(4):
+        sets.append(set(np.flatnonzero(rng.rand(n) < rng.uniform(0.1, 0.7))))
+    for top in (31, 63, 95):
+        if top < n:
+            sets.append(set(np.flatnonzero(rng.rand(n) < 0.3)) | {top})
+    return sets
+
+
+@pytest.mark.parametrize("n", [3, 17, 31, 32, 33, 48, 63, 64, 65, 100])
+def test_warp_algorithm_matches_reference(n):
+    """The kernel's closure (Warshall over S), nb and reach equal the JAX
+    reference's doubling closure and degrees, and the port's plain
+    wavefront op, exactly (bitsets)."""
+    from repro.core import components as ref_components
+    g = ref_graph.gnp(n, 0.25, n + 5)
+    adj = np.asarray(g.packed(), dtype=np.uint32)
+    sets = _model_states(n, seed=n)
+    states = np.asarray(ref_bitset.np_pack(sets, n), dtype=np.uint32)
+    a = jnp.asarray(adj)
+    feas_model = np.zeros((len(sets), n), dtype=bool)
+    k = n // 3
+    allowed = np.asarray(ref_bitset.np_allowed(n, [0]), dtype=np.uint32)
+    for b, s in enumerate(states):
+        z, reach, deg = _warp_model(adj, s, n)
+        np.testing.assert_array_equal(
+            z, np.asarray(ref_components.closure(a, jnp.asarray(s), n)))
+        wdeg, wreach = ref_components.eliminated_degrees(a, jnp.asarray(s), n)
+        np.testing.assert_array_equal(deg, np.asarray(wdeg))
+        np.testing.assert_array_equal(reach, np.asarray(wreach))
+        for v in range(n):
+            feas_model[b, v] = (deg[v] <= k and v not in sets[b]
+                                and (int(allowed[v >> 5]) >> (v & 31)) & 1)
+    valid = np.ones((len(sets),), dtype=bool)
+    gc, gf = _port(kernel_mod.wavefront_ref, adj, states, valid, k, allowed, n)
+    np.testing.assert_array_equal(gf, feas_model)
+    eye = np.asarray(ref_bitset.np_pack([{v} for v in range(n)], n),
+                     dtype=np.uint32)
+    np.testing.assert_array_equal(gc, states[:, None, :] | eye[None])
