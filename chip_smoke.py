@@ -12,7 +12,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
      card, bit for bit (``torch.equal``): the wavefront kernel under all
      four pruning-flag combinations, the MMW, expand and Bloom kernels,
      over sweeps of shapes with invalid rows, words whose bit 31 is set,
-     duplicate rows and forced probe collisions;
+     duplicate rows and forced probe collisions; and the lane forms of
+     the wavefront and Bloom kernels (one launch for L lanes, L in 1, 3
+     and 8, ragged valid rows and a lane with none);
   3. main paths: ``repro_torch.core.solver.solve(g)`` on petersen,
      myciel4, queen5_5, queen6_6 and queen7_7 with its defaults (cuda
      device and backend, cap auto, block 2048), with the paper's
@@ -28,13 +30,23 @@ Phases, each fatal on failure (non-zero exit, no result line):
   4. times: each kernel and its plain version at the main path's shapes
      (B=2048 states taken from real frontiers of queen6_6 and queen7_7,
      the wavefront kernel also at B=128, a ``SMALL_BLOCK`` chunk, and a
-     chunk's 2048*n sorted children for the Bloom kernel): the kernel's
-     device time per call from ``torch.profiler``'s kernel rows, and the
-     time per wrapper call with CUDA events, beside the least time the
-     card could take;
+     chunk's 2048*n sorted children for the Bloom kernel; the lane forms
+     on 8 lanes of queen7_7 at k=23..30 and their children in 8
+     filters): the kernel's device time per call by replaying a CUDA
+     graph of captured wrapper calls, and the time per wrapper call with
+     CUDA events, beside the least time the card could take;
   5. split: one queen7_7 solve in the paper's configuration under
      ``torch.profiler``: host planning, the level loop, and the device
-     time of each kernel.
+     time of each kernel;
+  6. lane paths: ``solve(g, lanes=4)`` on the five instances of phase 3
+     and ``batch.solve_many`` with 8 lanes over myciel3, myciel4,
+     queen5_5, queen6_6, petersen, desargues and queen7_7 (padded to
+     n=49, W=2), under the defaults and the paper's configuration, equal
+     to the JAX package's values (EXPECTED, EXPECTED_FLAGS and
+     EXPECTED_MANY); each path with its launch counts set to 0 just
+     before it and read just after, failing unless its kernels launched
+     and some wavefront launch covered several lanes; and the suite's
+     wall under ``solve_many`` beside the sequential ``solve`` loop.
 
 The second-to-last line is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or ``repro``.
@@ -194,6 +206,52 @@ PATHS = {
                    EXPECTED_FLAGS["simplicial"], ("wavefront",)),
 }
 RECONSTRUCT = ["petersen", "queen5_5"]
+
+# The lane paths.  ``solve(g, lanes=SPEC_LANES, **config)`` decides
+# SPEC_LANES rungs per dispatch and must give EXPECTED / EXPECTED_FLAGS
+# (speculative lanes share n).  ``batch.solve_many(SUITE,
+# lanes=SUITE_LANES, **config)`` pads the suite to n=49, W=2; its expected
+# values are ``repro.core.batch.solve_many`` on the CPU with the same
+# arguments (backend "jax", its default closure schedule "while"; every
+# schedule reaches the same closure).  For the five instances of EXPECTED
+# the reference gave exactly EXPECTED's and EXPECTED_FLAGS' values (no
+# padding caveat of the multi-lane engine changed them), so only myciel3
+# and desargues are written out.
+SPEC_LANES = 4
+SUITE_LANES = 8
+SUITE = ["myciel3", "myciel4", "queen5_5", "queen6_6", "petersen",
+         "desargues", "queen7_7"]
+LANE_CONFIGS = {"defaults": {}, "bloom+mmw": FLAG_CONFIGS["bloom+mmw"]}
+EXPECTED_MANY = {
+    "defaults": {
+        **EXPECTED,
+        "myciel3": dict(
+            width=5, exact=True, lb=4, ub=5, expanded=60,
+            block="myciel3_red[11]_red", per_k=[(4, False, False, 60)]),
+        "desargues": dict(
+            width=6, exact=True, lb=4, ub=7, expanded=203306,
+            block="DesarguesGraph_red[20]_red",
+            per_k=[(4, False, False, 25554), (5, False, False, 61044),
+                   (6, True, False, 116708)]),
+    },
+    "bloom+mmw": {
+        **EXPECTED_FLAGS["bloom+mmw"],
+        "myciel3": dict(
+            width=5, exact=True, lb=4, ub=5, expanded=10,
+            block="myciel3_red[11]_red", per_k=[(4, False, False, 10)]),
+        "desargues": dict(
+            width=6, exact=True, lb=4, ub=7, expanded=191278,
+            block="DesarguesGraph_red[20]_red",
+            per_k=[(4, False, False, 14439), (5, False, False, 60131),
+                   (6, True, False, 116708)]),
+    },
+}
+# lane counts and shapes of the lane kernels' checks
+LANE_L = (1, 3, 8)
+LANE_N = (17, 33, 49, 100)
+LANE_B = (7, 128)
+# timing: SUITE_LANES lanes of queen7_7, one rung each, the largest level
+TIMING_LANES = ("queen7_7", tuple(range(23, 31)))
 # (instance, k) whose largest level supplies the timing inputs
 TIMING_SHAPES = [("queen6_6", 25), ("queen7_7", 30)]
 # chunk widths of the engine: ``block`` and ``SMALL_BLOCK``
@@ -222,6 +280,11 @@ K_HASHES = 17
 KERNELS = {
     "wavefront": ("src/repro_torch/kernels/wavefront/csrc/wavefront.cu",
                   "src/repro/kernels/wavefront/kernel.py:47"),
+    "wavefront_lanes": (
+        "src/repro_torch/kernels/wavefront/csrc/wavefront.cu",
+        "src/repro/kernels/wavefront/kernel.py:47"),
+    "bloom_lanes": ("src/repro_torch/kernels/bloom/csrc/bloom.cu",
+                    "src/repro/kernels/bloom/kernel.py:62"),
     "mmw": ("src/repro_torch/kernels/mmw/csrc/mmw.cu",
             "src/repro/kernels/mmw/kernel.py:97"),
     "bloom": ("src/repro_torch/kernels/bloom/csrc/bloom.cu",
@@ -467,6 +530,94 @@ def check_expand(torch, np, bitset, graph, kern):
     return worst
 
 
+def lane_inputs(torch, np, bitset, graph, n, b, lanes, seed, strided):
+    """Per-lane graphs, states, ragged valid rows (lane 1 has none), k and
+    allowed; ``strided`` hands the kernel the states as a lane-strided
+    view of a larger buffer, as the engine's chunks are."""
+    rng = np.random.RandomState(seed)
+    adj = np.stack([graph.gnp(n, 0.2 + 0.05 * i, seed + i).packed()
+                    for i in range(lanes)])
+    w = bitset.n_words(n)
+    bits = rng.rand(lanes, b, n) < rng.uniform(0.05, 0.6,
+                                              size=(lanes, b, 1))
+    for top in (31, 63):
+        if top < n:
+            bits[:, ::2, top] = True         # words with the high bit set
+    states = bitset.pack(torch.from_numpy(bits.reshape(-1, n)), n).reshape(
+        lanes, b, w).to(DEVICE)
+    if strided:
+        buf = torch.zeros((lanes, 3 * b, w), dtype=torch.int32,
+                          device=DEVICE)
+        buf[:, b:2 * b] = states
+        states = buf[:, b:2 * b]
+    valid = np.arange(b)[None] < rng.randint(1, b + 1, size=(lanes, 1))
+    if lanes > 1:
+        valid[1] = False
+    allowed = np.stack([bitset.np_allowed(n, [i % n]) for i in range(lanes)])
+    k = rng.randint(n // 4, n // 2 + 1, size=lanes).astype(np.int32)
+    return (bitset.to_words(adj, DEVICE), states,
+            torch.from_numpy(valid).to(DEVICE),
+            torch.from_numpy(k).to(DEVICE), bitset.to_words(allowed, DEVICE))
+
+
+def check_wavefront_lanes(torch, np, bitset, graph, kern):
+    """The lane form against the plain version under every flag set: L in
+    LANE_L, ragged valid rows and a lane with none, contiguous and
+    lane-strided states, and a full 2048-row chunk of 8 lanes."""
+    worst = 0
+    cases = [(n, b, lanes) for n in LANE_N for b in LANE_B
+             for lanes in LANE_L] + [(49, 2048, 8)]
+    for use_mmw, use_simp in WAVEFRONT_FLAGS:
+        flags = dict(use_mmw=use_mmw, use_simplicial=use_simp)
+        for i, (n, b, lanes) in enumerate(cases):
+            args = lane_inputs(torch, np, bitset, graph, n, b, lanes,
+                               seed=100 * n + b + lanes, strided=i % 2 == 1)
+            got = kern.wavefront_expand(*args, n=n, **flags)
+            ok, err = same(torch, got, kern.wavefront_ref(*args, n=n,
+                                                          **flags))
+            worst = max(worst, err)
+            check(ok and (lanes == 1 or not bool(got[1][1].any())),
+                  f"lane wavefront kernel != plain version at n={n} B={b} "
+                  f"L={lanes} flags={flag_name(use_mmw, use_simp)} (max abs "
+                  f"err {err})")
+    log(f"kernels: lane wavefront bit-identical to wavefront_ref under "
+        f"flags {[flag_name(*f) for f in WAVEFRONT_FLAGS]} over "
+        f"n={list(LANE_N)} x B={list(LANE_B)} x L={list(LANE_L)} and "
+        f"(n, B, L)=(49, 2048, 8), ragged valid rows, a lane with none, "
+        f"contiguous and lane-strided states")
+    return worst
+
+
+def check_bloom_lanes(torch, np, kern):
+    """One filter per lane carried from batch to batch, L in LANE_L, a
+    lane with no valid row, against the plain version (each lane on its
+    own)."""
+    worst = 0
+    for m_bits, k in [(64, 3), (1 << 14, 17), (1 << 24, 17)]:
+        for lanes in LANE_L:
+            filt = kern.make_filter_words(m_bits, device=DEVICE, lanes=lanes)
+            for b in (1, 300, 4096):
+                batches = [bloom_batch(torch, np, b, 2, seed=m_bits + b + i)
+                           for i in range(lanes)]
+                states = torch.stack([x[0] for x in batches])
+                valid = torch.stack([x[1] for x in batches])
+                if lanes > 1:
+                    valid[1] = False
+                want = kern.bloom_insert_ref(filt.clone(), states, valid,
+                                             m_bits=m_bits, k_hashes=k)
+                got = kern.bloom_insert(filt, states, valid, m_bits=m_bits,
+                                        k_hashes=k)
+                ok, err = same(torch, got, want)
+                worst = max(worst, err)
+                check(ok, f"lane bloom kernel != plain version at m_bits="
+                          f"{m_bits} k={k} L={lanes} B={b} (max abs err "
+                          f"{err})")
+    log(f"kernels: lane bloom bit-identical to bloom_insert_ref (was_new "
+        f"and every lane's filter, carried across batches) over m_bits in "
+        f"(64, 2^14, 2^24) x L={list(LANE_L)} x B in (1, 300, 4096)")
+    return worst
+
+
 def phase_kernels(torch, np, bitset, graph, components, kern):
     return {"wavefront": check_wavefront(torch, np, bitset, graph,
                                          kern["wavefront"]),
@@ -474,13 +625,17 @@ def phase_kernels(torch, np, bitset, graph, components, kern):
                              kern["mmw"]),
             "bloom": check_bloom(torch, np, kern["bloom"]),
             "expand": check_expand(torch, np, bitset, graph,
-                                   kern["expand"])}
+                                   kern["expand"]),
+            "wavefront_lanes": check_wavefront_lanes(
+                torch, np, bitset, graph, kern["wavefront"]),
+            "bloom_lanes": check_bloom_lanes(torch, np, kern["bloom"])}
 
 
 def reset_counts(ops):
     for mod in ops.values():
         mod.LAUNCHES = 0
     ops["wavefront"].LAUNCHES_BY_B.clear()
+    ops["wavefront"].LAUNCHES_BY_LANES.clear()
 
 
 def widths(ops):
@@ -554,6 +709,68 @@ def phase_main_paths(torch, graph, solver, golden, ops):
     log(f"path [reconstruct]: launches {counts['reconstruct']}; wavefront "
         f"launches by chunk width {by_width['reconstruct']}")
     return counts, by_width, walls
+
+
+def phase_lanes(torch, graph, solver, batch, golden, ops):
+    """The lane paths, each with its launch counts set to 0 just before it
+    and read just after: ``solve(g, lanes=SPEC_LANES)`` over MAIN_PATH and
+    ``batch.solve_many(SUITE, lanes=SUITE_LANES)``, under each of
+    LANE_CONFIGS; then the suite's wall under ``solve_many`` beside the
+    sequential ``[solve(g) for g in SUITE]`` loop.  Returns path ->
+    counts, path -> the wavefront kernel's launches by lane count, and
+    the suite walls."""
+    counts, by_lanes, walls = {}, {}, {}
+    for config, kw in LANE_CONFIGS.items():
+        needed = PATHS[config][2]
+        path = f"lanes={SPEC_LANES} {config}"
+        reset_counts(ops)
+        for name in MAIN_PATH:
+            t0 = time.perf_counter()
+            res = solver.solve(graph.REGISTRY[name](), lanes=SPEC_LANES,
+                               **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            check_solve(res, f"{path} {name}", PATHS[config][1][name],
+                        golden)
+            log(f"solve [{path}] {name}: treewidth={res.width} "
+                f"exact={res.exact} expanded={res.expanded} "
+                f"wall={wall:.3f} s")
+        counts[path] = read_counts(ops)
+        by_lanes[path] = dict(sorted(
+            ops["wavefront"].LAUNCHES_BY_LANES.items()))
+
+        many = f"solve_many lanes={SUITE_LANES} {config}"
+        gs = [graph.REGISTRY[name]() for name in SUITE]
+        reset_counts(ops)
+        t0 = time.perf_counter()
+        results = batch.solve_many(gs, lanes=SUITE_LANES, **kw)
+        torch.cuda.synchronize()
+        walls[many] = time.perf_counter() - t0
+        counts[many] = read_counts(ops)
+        by_lanes[many] = dict(sorted(
+            ops["wavefront"].LAUNCHES_BY_LANES.items()))
+        for name, res in zip(SUITE, results):
+            check_solve(res, f"{many} {name}", EXPECTED_MANY[config][name],
+                        golden)
+            log(f"solve [{many}] {name}: treewidth={res.width} "
+                f"exact={res.exact} expanded={res.expanded}")
+        t0 = time.perf_counter()
+        for g in gs:
+            solver.solve(g, **kw)
+        torch.cuda.synchronize()
+        walls[f"sequential {config}"] = time.perf_counter() - t0
+        for p in (path, many):
+            for kernel in needed:
+                check(counts[p][kernel] > 0,
+                      f"path [{p}]: the {kernel} kernel never launched")
+            check(max(by_lanes[p], default=0) > 1,
+                  f"path [{p}]: no wavefront launch covered several lanes")
+            log(f"path [{p}]: launches {counts[p]}; wavefront launches by "
+                f"lane count {by_lanes[p]}")
+        log(f"suite wall [{config}]: solve_many {walls[many]:.3f} s, "
+            f"sequential solve loop {walls[f'sequential {config}']:.3f} s "
+            f"({len(SUITE)} instances)")
+    return counts, by_lanes, walls
 
 
 def timing_inputs(torch, np, bitset, graph, preprocess, solver, batch,
@@ -671,8 +888,9 @@ class FreshFilters:
     that every timed Bloom call finds the filter as a level's first chunk
     does; ``reset`` empties them all and starts the turn again."""
 
-    def __init__(self, bl, count):
-        self.filters = [bl.make_filter_words(M_BITS, device=DEVICE)
+    def __init__(self, bl, count, lanes=None):
+        self.filters = [bl.make_filter_words(M_BITS, device=DEVICE,
+                                             lanes=lanes)
                         for _ in range(count)]
         self.turn = 0
 
@@ -718,9 +936,10 @@ def time_wavefront(torch, bitset, components, wf, shape, k, args, n, live):
 
 
 def phase_times(torch, np, bitset, graph, preprocess, solver, batch,
-                components, bloom, dedup, kern):
+                components, bloom, dedup, kern, lanes=True):
     """Returns kernel -> timing entries; the wavefront kernel's first
-    entry is the main one (no flags, B=2048, the first shape)."""
+    entry is the main one (no flags, B=2048, the first shape).  ``lanes``
+    adds the lane forms (``time_lanes``)."""
     rows = {name: [] for name in KERNELS}
     for shape, k in TIMING_SHAPES:
         adj, states, valid, kk, allowed, n, live = timing_inputs(
@@ -803,7 +1022,95 @@ def phase_times(torch, np, bitset, graph, preprocess, solver, batch,
         rows["bloom"].append(dict(shape=shape, B=b * n, ms=dev,
                                   wrapper_ms=ms, plain_ms=plain,
                                   bound_ms=bms, bound_by=by))
+    if lanes:
+        time_lanes(torch, np, bitset, graph, preprocess, solver, batch,
+                   components, bloom, dedup, kern, rows)
     return rows
+
+
+def time_lanes(torch, np, bitset, graph, preprocess, solver, batch,
+               components, bloom, dedup, kern, rows):
+    """The lane forms at the lane paths' shapes: SUITE_LANES lanes of
+    queen7_7, lane i at rung TIMING_LANES[1][i], each with the first 2048
+    states of its largest level; B5 on each lane's sorted children into
+    its own empty default-size filter."""
+    shape, ks = TIMING_LANES
+    block = max(TIMING_B)
+    ins = [timing_inputs(torch, np, bitset, graph, preprocess, solver,
+                         batch, shape, k, block=block) for k in ks]
+    n = ins[0][5]
+    adj, states, valid, allowed = (torch.stack([x[i] for x in ins])
+                                   for i in (0, 1, 2, 4))
+    kk = torch.tensor([x[3] for x in ins], dtype=torch.int32, device=DEVICE)
+    live = [x[6] for x in ins]
+    lanes, b, w = states.shape
+    args = (adj, states, valid, kk, allowed)
+    wf = kern["wavefront"]
+    tag = f"{shape} k={ks[0]}..{ks[-1]}"
+    for use_mmw, use_simp in WAVEFRONT_FLAGS:
+        flags = dict(use_mmw=use_mmw, use_simplicial=use_simp)
+        name = flag_name(use_mmw, use_simp)
+        ok, _ = same(torch, wf.wavefront_expand(*args, n=n, **flags),
+                     wf.wavefront_ref(*args, n=n, **flags))
+        check(ok, f"lane wavefront kernel != plain version on {tag}, "
+                  f"flags {name}")
+        dev, ms, plain = kernel_times(
+            torch, lambda: wf.wavefront_expand(*args, n=n, **flags),
+            lambda: wf.wavefront_ref(*args, n=n, **flags))
+        nbytes = ops = 0
+        for i in range(lanes):
+            pruned = 0
+            if use_mmw or use_simp:
+                _, feas = wf.wavefront_ref(adj[i], states[i], valid[i],
+                                           int(kk[i]), allowed[i], n=n)
+                pruned = int(feas.any(dim=1).sum())
+            _, _, nb, op = wavefront_bound(bitset, components, adj[i],
+                                           states[i], valid[i], allowed[i],
+                                           n, pruned)
+            nbytes, ops = nbytes + nb, ops + op
+        bms, by = bound(nbytes, ops)
+        log(f"time wavefront lanes[{name}] {tag}: L={lanes} B={b} (live "
+            f"{live}) n={n} W={w}: device {dev:.4f} ms, wrapper {ms:.4f} ms, "
+            f"plain {plain:.4f} ms, bound {bms:.6f} ms by {by} ({nbytes} "
+            f"bytes, {ops} word ops)")
+        rows["wavefront_lanes"].append(dict(
+            shape=tag, L=lanes, B=b, flags=name, ms=dev, wrapper_ms=ms,
+            plain_ms=plain, bound_ms=bms, bound_by=by))
+
+    children, feas = wf.wavefront_expand(*args, n=n)
+    skeys, svalid = dedup.sort_states(children.reshape(lanes, b * n, w),
+                                      feas.reshape(lanes, b * n))
+    keep = dedup.unique_mask(skeys, svalid)
+    bl = kern["bloom"]
+    filt = bl.make_filter_words(M_BITS, device=DEVICE, lanes=lanes)
+    ok, _ = same(torch,
+                 bl.bloom_insert(filt.clone(), skeys, keep, m_bits=M_BITS,
+                                 k_hashes=K_HASHES),
+                 bl.bloom_insert_ref(filt.clone(), skeys, keep,
+                                     m_bits=M_BITS, k_hashes=K_HASHES))
+    check(ok, f"lane bloom kernel != plain version on {tag} children")
+    fresh = FreshFilters(bl, max(GRAPH_CALLS, 100 + WARMUP), lanes=lanes)
+    dev, ms, plain = kernel_times(
+        torch, lambda: bl.bloom_insert(fresh(), skeys, keep, m_bits=M_BITS,
+                                       k_hashes=K_HASHES),
+        lambda: bl.bloom_insert_ref(fresh(), skeys, keep, m_bits=M_BITS,
+                                    k_hashes=K_HASHES),
+        reset=fresh.reset)
+    del fresh
+    nbytes = ops = 0
+    for i in range(lanes):
+        _, _, nb, op = bloom_bound(torch, bloom, skeys[i], keep[i], M_BITS,
+                                   K_HASHES)
+        nbytes, ops = nbytes + nb, ops + op
+    bms, by = bound(nbytes, ops)
+    log(f"time bloom lanes {tag}: L={lanes} x {b * n} rows "
+        f"({int(keep.sum())} kept) W={w} m_bits={M_BITS} "
+        f"k_hashes={K_HASHES}: device {dev:.4f} ms, wrapper {ms:.4f} ms, "
+        f"plain {plain:.4f} ms, bound {bms:.6f} ms by {by} ({nbytes} bytes, "
+        f"{ops} word ops)")
+    rows["bloom_lanes"].append(dict(shape=tag, L=lanes, B=b * n, ms=dev,
+                                    wrapper_ms=ms, plain_ms=plain,
+                                    bound_ms=bms, bound_by=by))
 
 
 
@@ -897,8 +1204,11 @@ def main(argv=None):
     smi = phase_device(build)
     if args.times_only:
         log(f"times of the kernels under {args.src}")
+        # a tree from before the multi-lane engine has no lane form
+        has_lanes = hasattr(wavefront_kern.ops, "LAUNCHES_BY_LANES")
         times = phase_times(torch, np, bitset, graph, preprocess, solver,
-                            batch, components, bloom, dedup, kern)
+                            batch, components, bloom, dedup, kern,
+                            lanes=has_lanes)
         log(f"build and times in {time.perf_counter() - t_start:.1f} s")
         print(smi, flush=True)
         print(json.dumps({"times": times, "src": args.src}), flush=True)
@@ -918,18 +1228,29 @@ def main(argv=None):
     t0 = time.perf_counter()
     phase_split(torch, graph, preprocess, solver, walls)
     log(f"phase 5 (split) in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    lane_counts, by_lanes, suite_walls = phase_lanes(torch, graph, solver,
+                                                     batch, golden, ops)
+    log(f"phase 6 (lane paths) in {time.perf_counter() - t0:.1f} s")
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         main_shape = times[name][0]
+        # a lane row counts its kernel's launches on the lane paths
+        base, paths = (name[:-len("_lanes")], lane_counts) \
+            if name.endswith("_lanes") else (name, counts)
         entry = dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=sum(c[name] for c in counts.values()),
+            launches=sum(c[base] for c in paths.values()),
             max_abs_err=worst[name], ms=main_shape["ms"],
             plain_ms=main_shape["plain_ms"], bound_ms=main_shape["bound_ms"],
             bound_by=main_shape["bound_by"], library_ms=None,
             wrapper_ms=main_shape["wrapper_ms"])
         if name == "wavefront":
             entry["launches_by_width"] = by_width
+        if name == "wavefront_lanes":
+            entry["launches_by_lanes"] = by_lanes
+            entry["suite_walls_s"] = suite_walls
+        if name.startswith("wavefront"):
             entry["variants"] = [v for v in times[name][1:]
                                  if v["shape"] == main_shape["shape"]]
         kernels.append(entry)

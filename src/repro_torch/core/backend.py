@@ -24,6 +24,13 @@ Capability table:
   bloom_make_filter    ✓      ✓     torch: uint8 per bit; cuda: packed
                                      int32 words
 
+``wavefront_expand``, ``sort_dedup`` and ``bloom_query_insert`` also take
+a leading lane axis (the multi-lane engine, ``core.batch``): states
+``(L, B, W)`` with per-lane adjacency, allowed mask and an ``(L,)`` int32
+``k`` tensor; rows ``(L, M, W)`` sorted lane by lane; one filter per lane
+(``bloom_make_filter(..., lanes=L)``).  Under ``cuda`` each is one
+launch (or call) for every lane.
+
 What the port does not do yet fails in ``validate`` with a
 ``BackendCapabilityError`` naming the ROADMAP item that adds it, before
 any work starts.  Loaders are thunks, so importing this module loads no
@@ -39,6 +46,9 @@ import torch
 BACKENDS: Tuple[str, ...] = ("torch", "cuda")
 
 DEDUP_MODES: Tuple[str, ...] = ("sort", "bloom")
+
+# backends whose ops take the multi-lane engine's leading lane axis
+BATCHED_BACKENDS: Tuple[str, ...] = ("torch", "cuda")
 
 # closure schedules ported so far (the reference's jax backend also has
 # "while", "linear" and "matmul": the Table-6 sweep)
@@ -127,10 +137,14 @@ def validate(backend: str, *, mode: str = "sort",
             f"schedule={schedule!r} is not ported (supported: "
             f"{', '.join(SCHEDULES)}); the other closure schedules are "
             "the Table-6 sweep (ROADMAP A3)")
-    if lanes != 1:
+    if lanes < 1:
         raise BackendCapabilityError(
-            f"lanes={lanes}: the multi-lane engine is not ported "
-            "(ROADMAP A8); run with lanes=1")
+            f"lanes must be >= 1 (got {lanes})")
+    if lanes > 1 and backend not in BATCHED_BACKENDS:
+        raise BackendCapabilityError(
+            f"backend {backend!r} does not support the multi-lane engine "
+            f"(batched backends: {', '.join(BATCHED_BACKENDS)}); run with "
+            "lanes=1 or switch backend.")
     if shards != 1:
         raise BackendCapabilityError(
             f"shards={shards}: the sharded engine is not ported "

@@ -16,6 +16,8 @@ back as int64 values in ``[0, 2^32)``.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from .bitset import MASK32
@@ -112,8 +114,12 @@ def insert(filt: torch.Tensor, idx: torch.Tensor,
     return filt
 
 
-def make_filter(m_bits: int, device=None) -> torch.Tensor:
-    return torch.zeros((m_bits,), dtype=torch.uint8, device=device)
+def make_filter(m_bits: int, device=None,
+                lanes: Optional[int] = None) -> torch.Tensor:
+    """An empty filter of ``m_bits`` bytes, or one per lane, (lanes,
+    m_bits)."""
+    lead = () if lanes is None else (lanes,)
+    return torch.zeros(lead + (m_bits,), dtype=torch.uint8, device=device)
 
 
 def query_and_insert(filt, words, valid, m_bits: int,
@@ -124,14 +130,20 @@ def query_and_insert(filt, words, valid, m_bits: int,
     Duplicates *within* ``words`` all report new: callers dedup the batch
     first.  Unlike the reference, which returns a new array, the filter is
     updated in place (it is 16 MiB at the solver's default size) and
-    returned.
+    returned.  A filter with a lane axis, (L, m_bits), holds one filter
+    per lane: words (L, ..., W) and valid (L, ...) then go lane by lane
+    into their own filter, each batch queried before it is inserted.
     """
+    lanes = filt.shape[0] if filt.dim() == 2 else 1
+    flat_filt = filt.reshape(-1)
+    valid2 = valid.reshape(lanes, -1)
+    words2 = words.reshape(lanes, -1, words.shape[-1])
     # only valid rows are hashed: the others are neither new nor inserted
-    rows = valid.reshape(-1).nonzero().squeeze(1)
-    idx = probe_indices(words.reshape(-1, words.shape[-1])[rows], m_bits,
-                        k_hashes)
-    was_new = torch.zeros(valid.numel(), dtype=torch.bool,
+    lane, row = valid2.nonzero(as_tuple=True)
+    idx = probe_indices(words2[lane, row], m_bits, k_hashes) \
+        + lane[:, None] * m_bits
+    was_new = torch.zeros(valid2.shape, dtype=torch.bool,
                           device=valid.device)
-    was_new[rows] = ~query(filt, idx)
-    insert(filt, idx, torch.ones_like(rows, dtype=torch.bool))
+    was_new[lane, row] = ~query(flat_filt, idx)
+    insert(flat_filt, idx, torch.ones_like(row, dtype=torch.bool))
     return was_new.reshape(valid.shape), filt

@@ -11,6 +11,12 @@ before a state holds all n vertices).
 A neighbour-difference mask keeps first occurrences, and ``compact``
 scatters kept rows into a fixed ``(cap, W)`` buffer, dropping what lands
 past ``cap`` (the paper's list-overflow semantics).
+
+Every function also takes a leading lane axis (rows ``(L, M, W)``, masks
+``(L, M)``) for the multi-lane engine: each lane is sorted on its own
+(the lane is the most significant key, and the sentinel sorts last within
+its lane), and ``compact`` appends each lane at its own offset into its
+own ``(cap, W)`` buffer with its own drop count.
 """
 from __future__ import annotations
 
@@ -22,51 +28,65 @@ SENTINEL = -1          # 0xFFFFFFFF as an int32 bit pattern
 
 
 def sort_states(keys: torch.Tensor, valid: torch.Tensor):
-    """Lexicographically sort rows of (M, W) with invalid rows sent to the
-    end.  Returns (sorted_keys (M, W), sorted_valid (M,))."""
-    m, w = keys.shape
-    keys = torch.where(valid[:, None], keys,
+    """Lexicographically sort rows of ([L,] M, W) with invalid rows sent to
+    the end of their lane.  Returns (sorted_keys, sorted_valid)."""
+    w = keys.shape[-1]
+    keys = torch.where(valid[..., None], keys,
                        torch.full_like(keys, SENTINEL))
-    perm = torch.arange(m, device=keys.device)
+    perm = torch.arange(keys.shape[-2], device=keys.device).expand(
+        valid.shape)
     for j in range(w - 1, -1, -1):
-        col = keys[perm, j].to(torch.int64) & MASK32
-        perm = perm[torch.sort(col, stable=True).indices]
-    return keys[perm], valid[perm]
+        col = torch.gather(keys[..., j], -1, perm).to(torch.int64) & MASK32
+        perm = torch.gather(perm, -1,
+                            torch.sort(col, dim=-1, stable=True).indices)
+    rows = torch.gather(keys, -2, perm[..., None].expand(keys.shape))
+    return rows, torch.gather(valid, -1, perm)
 
 
 def unique_mask(sorted_keys: torch.Tensor, sorted_valid: torch.Tensor):
-    """First-occurrence mask over sorted rows."""
-    diff = torch.any(sorted_keys[1:] != sorted_keys[:-1], dim=1)
-    first = torch.cat([torch.ones((1,), dtype=torch.bool,
-                                  device=sorted_keys.device), diff])
-    return first & sorted_valid
+    """First-occurrence mask over sorted rows (per lane)."""
+    diff = torch.any(sorted_keys[..., 1:, :] != sorted_keys[..., :-1, :],
+                     dim=-1)
+    first = torch.ones(sorted_valid.shape[:-1] + (1,), dtype=torch.bool,
+                       device=sorted_keys.device)
+    return torch.cat([first, diff], dim=-1) & sorted_valid
 
 
 def compact(rows: torch.Tensor, keep: torch.Tensor, cap: int, offset=0,
             out: torch.Tensor = None):
-    """Scatter kept rows into a (cap, W) buffer starting at ``offset``.
+    """Scatter kept rows into a ([L,] cap, W) buffer starting at ``offset``.
 
-    ``out`` is an optional ``(cap + 1, W)`` buffer to append into (row
-    ``cap`` is the drop slot); a fresh zero buffer otherwise.  ``offset``
-    may be an int or a 0-d tensor.  Returns (buffer (cap, W), n_written,
-    n_dropped) with the counts as 0-d int64 tensors.
+    ``out`` is an optional contiguous ``([L,] cap + 1, W)`` buffer to
+    append into (row ``cap`` is the drop slot); a fresh zero buffer
+    otherwise.  ``offset`` may be an int, a 0-d tensor or, with a lane
+    axis, an (L,) tensor.  Returns (buffer ([L,] cap, W), n_written,
+    n_dropped) with the counts as int64 tensors of shape ``[L]``.
     """
+    lead = keep.shape[:-1]
     w = rows.shape[-1]
-    pos = torch.cumsum(keep.to(torch.int64), dim=0) - 1 + offset
-    n_keep = keep.to(torch.int64).sum()
-    idx = torch.where(keep & (pos < cap), pos,
+    keep2 = keep.reshape(-1, keep.shape[-1])                  # (L, M)
+    off = torch.as_tensor(offset, device=rows.device).to(
+        torch.int64).reshape(-1, 1)                           # (L|1, 1)
+    pos = torch.cumsum(keep2.to(torch.int64), dim=-1) - 1 + off
+    n_keep = keep2.to(torch.int64).sum(dim=-1)
+    idx = torch.where(keep2 & (pos < cap), pos,
                       torch.full_like(pos, cap))             # cap == drop slot
     if out is None:
-        out = torch.zeros((cap + 1, w), dtype=rows.dtype, device=rows.device)
-    out.index_put_((idx,), rows)
-    room = torch.clamp(cap - torch.as_tensor(offset, device=rows.device),
-                       min=0)
+        out = torch.zeros(lead + (cap + 1, w), dtype=rows.dtype,
+                          device=rows.device)
+    base = torch.arange(keep2.shape[0], device=rows.device)[:, None] \
+        * (cap + 1)
+    out.view(-1, w).index_put_(((idx + base).reshape(-1),),
+                               rows.reshape(-1, w))
+    room = torch.clamp(cap - off[:, 0], min=0)
     written = torch.minimum(n_keep, room)
-    return out[:cap], written, n_keep - written
+    return (out[..., :cap, :], written.reshape(lead),
+            (n_keep - written).reshape(lead))
 
 
 def dedup_compact(keys: torch.Tensor, valid: torch.Tensor, cap: int):
-    """Sort-dedup rows and compact into a fresh (cap, W) frontier buffer.
+    """Sort-dedup rows and compact into a fresh ([L,] cap, W) frontier
+    buffer, lane by lane.
 
     Returns (buffer, count, dropped)."""
     sk, sv = sort_states(keys, valid)

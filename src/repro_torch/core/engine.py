@@ -1,25 +1,38 @@
 """The wavefront engine: levels of the Held-Karp DP over a fixed frontier.
 
-Ports ``repro.core.engine``.  The reference runs the level and chunk loops
-inside one ``lax.while_loop`` program; PyTorch runs eagerly, so here both
-loops run on the host and read the frontier's ``count`` once per level
-(one device sync per level).  Chunks launch without syncing: the append
-offset and drop counter stay on the device.
+Ports ``repro.core.engine`` together with its lane axis (the reference
+vmaps ``decide_loop`` in ``repro.core.batch``).  The reference runs the
+level and chunk loops inside one ``lax.while_loop`` program; PyTorch runs
+eagerly, so here both loops run on the host.  ``decide_loop`` steps the
+lanes of a lane-batched frontier (one lane for ``fused_decide``), each
+with its own adjacency, allowed mask, k, target and frontier, and reads
+the ``(L,)`` counts once per level (one device sync per level).  Chunks
+launch without syncing: append offsets and drop counters stay on the
+device.
 
-The chunk geometry is the reference's exactly, because which rows survive
-an overflow depends on it:
+The chunk geometry is each lane's own, as in the reference, because which
+rows survive an overflow depends on it:
 
-  * a level runs in ``block``-row chunks, or in one ``SMALL_BLOCK``-row
-    chunk when its whole frontier fits there;
+  * a lane's level runs in ``block``-row chunks, or in one
+    ``SMALL_BLOCK``-row chunk when its whole frontier fits there;
   * children of a chunk are sorted, deduped and appended in sorted order;
     rows past ``cap`` are dropped and counted;
   * a level that spanned several chunks (``count > blk``) gets one
     cross-chunk sort-dedup over the whole buffer.
 
-``mode="bloom"`` is the paper's dedup: each level gets a fresh filter
-(``bloom_make_filter``), every chunk's sorted-unique children are queried
-and inserted (``bloom_query_insert``) before they are appended, and the
-cross-chunk sort-dedup is skipped.
+Chunk j of every live lane goes through one ``wavefront_expand``, one
+sort and one Bloom call.  When some lane runs ``block``-row chunks, a lane
+whose frontier fits in ``SMALL_BLOCK`` rows rides in the same wide tile,
+its rows past its count invalid; invalid rows sort after every valid row
+and are never kept, so the lane's appended rows, drops and Bloom insert
+order are those of its own narrow chunk.  A lane that has finished (its
+target reached or its frontier empty) keeps its frontier as it was and
+leaves the kernels' grids.
+
+``mode="bloom"`` is the paper's dedup: each level gets a fresh filter per
+lane (``bloom_make_filter``), every chunk's sorted-unique children are
+queried and inserted (``bloom_query_insert``) before they are appended,
+and the cross-chunk sort-dedup is skipped.
 
 ``fused_decide_launch`` / ``DispatchHandle.result()`` keep the reference's
 launch/result split; ``result()`` is the one copy of the verdict to the
@@ -106,9 +119,12 @@ def validate_geometry(cap: int, block: int, *, adaptive: bool = False) -> int:
     return block
 
 
-def new_out(cap: int, w: int, device) -> torch.Tensor:
-    """A level's append buffer: ``cap`` rows plus the drop slot."""
-    return torch.zeros((cap + 1, w), dtype=torch.int32, device=device)
+def new_out(cap: int, w: int, device, lanes: Optional[int] = None):
+    """A level's append buffer: ``cap`` rows plus the drop slot (one per
+    lane with ``lanes``)."""
+    lead = () if lanes is None else (lanes,)
+    return torch.zeros(lead + (cap + 1, w), dtype=torch.int32,
+                       device=device)
 
 
 def expand_chunk(adj, states_chunk, chunk_valid, k, out, ocount, dropped,
@@ -119,13 +135,16 @@ def expand_chunk(adj, states_chunk, chunk_valid, k, out, ocount, dropped,
 
     ``ocount`` and ``dropped`` are 0-d device tensors; ``filt`` is the
     level's Bloom filter (unused in sort mode).  Returns the updated
-    (out, ocount, dropped, filt) without a host sync."""
+    (out, ocount, dropped, filt) without a host sync.  In the lane form
+    every operand has a leading lane axis, ``k`` is an (L,) int32 tensor
+    and the counts are (L,)."""
     w = adj.shape[-1]
+    lead = chunk_valid.shape[:-1]          # (L,) in the lane form
     children, feas = backend_lib.get_op("wavefront_expand", backend)(
         adj, states_chunk, chunk_valid, k, allowed, n=n, schedule=schedule,
         use_mmw=use_mmw, use_simplicial=use_simplicial)
-    flat = children.reshape(block * n, w)
-    fmask = feas.reshape(block * n)
+    flat = children.reshape(lead + (block * n, w))
+    fmask = feas.reshape(lead + (block * n,))
     skeys, keep = backend_lib.get_op("sort_dedup", backend)(flat, fmask)
     if mode == "bloom":
         keep, filt = backend_lib.get_op("bloom_query_insert", backend)(
@@ -135,71 +154,103 @@ def expand_chunk(adj, states_chunk, chunk_valid, k, out, ocount, dropped,
     return out, ocount + written, dropped + drop, filt
 
 
-def chunk_sweep(adj, allowed, k, states, count: int, blk, *, n, cap, mode,
-                use_mmw, m_bits, k_hashes, schedule, backend,
+def _level_step(adj, allowed, k, fr, counts, live, *, n, cap, block,
+                mode, use_mmw, m_bits, k_hashes, schedule, backend,
                 use_simplicial):
-    """Expand ``count`` rows of ``states`` in ``blk``-row chunks.
+    """One wavefront level of the lanes in ``live``.
 
-    Returns (out (cap, W), ocount, dropped) with the counts as 0-d
-    tensors."""
-    w = adj.shape[-1]
+    ``counts`` and ``live`` are host lists (the level's one read of the
+    counts).  Only the live lanes enter the kernels: when some lane has
+    finished, the others' operands are gathered first.  Returns
+    (frontier, dropped (L,) int64 of this level)."""
+    nl, _, w = fr.states.shape
     device = adj.device
-    out = new_out(cap, w, device)
-    ocount = torch.zeros((), dtype=torch.int64, device=device)
-    dropped = torch.zeros((), dtype=torch.int64, device=device)
+    on = [i for i in range(nl) if live[i]]
+    sel = None
+    if len(on) < nl:
+        sel = torch.tensor(on, dtype=torch.int64, device=device)
+        adj, allowed, k = adj[sel], allowed[sel], k[sel]
+    states = fr.states if sel is None else fr.states[sel]
+    counts = [counts[i] for i in on]
+    count_dev = (fr.count if sel is None else fr.count[sel]).to(torch.int64)
+    small = min(block, SMALL_BLOCK)
+    # each lane's own chunk width
+    blks = [small if (small != block and c <= small) else block
+            for c in counts]
+    tile = max(blks)
+    n_chunks = max(-(-c // tile) for c in counts)
+    out = new_out(cap, w, device, lanes=len(on))
+    ocount = torch.zeros((len(on),), dtype=torch.int64, device=device)
+    dropped = torch.zeros((len(on),), dtype=torch.int64, device=device)
     filt = None
     if mode == "bloom":
         filt = backend_lib.get_op("bloom_make_filter", backend)(
-            m_bits, device=device)
-    rows = torch.arange(blk, dtype=torch.int64, device=device)
-    for lo in range(0, count, blk):
+            m_bits, device=device, lanes=len(on))
+    rows = torch.arange(tile, dtype=torch.int64, device=device)
+    for c in range(n_chunks):
+        lo = c * tile
         out, ocount, dropped, filt = expand_chunk(
-            adj, states[lo:lo + blk], (rows + lo) < count, k, out, ocount,
-            dropped, filt, allowed, n=n, cap=cap, block=blk, mode=mode,
+            adj, states[:, lo:lo + tile],
+            (rows + lo)[None] < count_dev[:, None], k, out, ocount,
+            dropped, filt, allowed, n=n, cap=cap, block=tile, mode=mode,
             use_mmw=use_mmw, m_bits=m_bits, k_hashes=k_hashes,
             schedule=schedule, backend=backend,
             use_simplicial=use_simplicial)
-    out = out[:cap]
-    if mode == "sort" and count > blk:
-        # cross-chunk exact dedup, only when the level spanned several
-        # chunks (single-chunk output is already sorted-unique)
-        valid = torch.arange(cap, device=device) < ocount
-        out, ocount, drop2 = dedup.dedup_compact(out, valid, cap)
-        dropped = dropped + drop2
-    return out, ocount, dropped
+    out = out[:, :cap]
+    # the cross-chunk dedup, for the lanes whose level spanned several of
+    # their own chunks
+    need = [i for i, (c, b) in enumerate(zip(counts, blks)) if c > b]
+    if mode == "sort" and need:
+        part = torch.tensor(need, dtype=torch.int64, device=device)
+        valid = torch.arange(cap, device=device)[None] < ocount[part, None]
+        buf, cnt, drop2 = dedup.dedup_compact(out[part], valid, cap)
+        out[part] = buf
+        ocount[part] = cnt
+        dropped[part] += drop2
+    if sel is None:
+        return frontier_lib.Frontier(out, ocount.to(torch.int32),
+                                     dropped.to(torch.int32)), dropped
+    # finished lanes keep their frontier
+    new = frontier_lib.Frontier(fr.states.clone(), fr.count.clone(),
+                                fr.dropped.clone())
+    new.states[sel] = out
+    new.count[sel] = ocount.to(torch.int32)
+    new.dropped[sel] = dropped.to(torch.int32)
+    all_dropped = torch.zeros((nl,), dtype=torch.int64, device=device)
+    all_dropped[sel] = dropped
+    return new, all_dropped
 
 
-def _level_step(adj, allowed, k, fr, count: int, *, n, cap, block, **kw):
-    """One wavefront level over the ``count`` live rows of ``fr``."""
-    small = min(block, SMALL_BLOCK)
-    blk = small if (small != block and count <= small) else block
-    out, ocount, dropped = chunk_sweep(adj, allowed, k, fr.states, count,
-                                       blk, n=n, cap=cap, **kw)
-    return frontier_lib.Frontier(out, ocount.to(torch.int32),
-                                 dropped.to(torch.int32))
-
-
-def decide_loop(adj, allowed, k, target, fr, *, n, cap, block, mode,
+def decide_loop(adj, allowed, k, targets, fr, *, n, cap, block, mode,
                 use_mmw, m_bits, k_hashes, schedule, backend,
                 use_simplicial):
-    """Run up to ``target`` wavefront levels; stop early on emptiness.
+    """Run every lane of a lane-batched frontier up to its target level;
+    a lane stops early on emptiness, as it would alone.
 
-    Returns (frontier, levels_run, expanded, dropped_total); the last is a
-    0-d tensor.  Reads the frontier's count once per level."""
-    level, expanded = 0, 0
-    dropped = torch.zeros((), dtype=torch.int32, device=adj.device)
-    count = int(fr.count)
-    while level < target and count > 0:
-        expanded += count
-        fr = _level_step(adj, allowed, k, fr, count, n=n, cap=cap,
-                         block=block, mode=mode, use_mmw=use_mmw,
-                         m_bits=m_bits, k_hashes=k_hashes,
-                         schedule=schedule, backend=backend,
-                         use_simplicial=use_simplicial)
-        dropped = dropped + fr.dropped
-        count = int(fr.count)
-        level += 1
-    return fr, level, expanded, dropped
+    adj (L, n, W), allowed (L, W), k an (L,) int32 tensor on the device,
+    ``targets`` a host list of each lane's level count, ``fr`` a
+    ``frontier.lane_frontiers`` carry.  Each level reads the (L,) counts
+    once.  Returns (frontier, levels_run, expanded, dropped_total), the
+    middle two host lists and the last an (L,) int32 tensor."""
+    nl = len(targets)
+    levels, expanded = [0] * nl, [0] * nl
+    dropped = torch.zeros((nl,), dtype=torch.int32, device=adj.device)
+    while True:
+        counts = fr.count.tolist()
+        live = [levels[i] < targets[i] and counts[i] > 0
+                for i in range(nl)]
+        if not any(live):
+            return fr, levels, expanded, dropped
+        for i in range(nl):
+            if live[i]:
+                expanded[i] += counts[i]
+                levels[i] += 1
+        fr, drop = _level_step(
+            adj, allowed, k, fr, counts, live, n=n, cap=cap, block=block,
+            mode=mode, use_mmw=use_mmw, m_bits=m_bits, k_hashes=k_hashes,
+            schedule=schedule, backend=backend,
+            use_simplicial=use_simplicial)
+        dropped = dropped + drop.to(torch.int32)
 
 
 def fused_decide_launch(adj_dev, allowed_dev, k: int, target, *, n, cap,
@@ -223,10 +274,16 @@ def fused_decide_launch(adj_dev, allowed_dev, k: int, target, *, n, cap,
         fr = frontier_lib.empty_frontier(cap, w, device)
     levels = target if max_levels is None else min(target, max_levels)
 
-    fr, _level, expanded, dropped = decide_loop(
-        adj_dev, allowed_dev, int(k), levels, fr, n=n, cap=cap, block=block,
-        mode=mode, use_mmw=use_mmw, m_bits=m_bits, k_hashes=k_hashes,
-        schedule=schedule, backend=backend, use_simplicial=use_simplicial)
+    one = frontier_lib.Frontier(fr.states[None], fr.count.reshape(1),
+                                fr.dropped.reshape(1))
+    one, _level, expanded, dropped = decide_loop(
+        adj_dev[None], allowed_dev[None],
+        torch.tensor([int(k)], dtype=torch.int32, device=device), [levels],
+        one, n=n, cap=cap, block=block, mode=mode, use_mmw=use_mmw,
+        m_bits=m_bits, k_hashes=k_hashes, schedule=schedule,
+        backend=backend, use_simplicial=use_simplicial)
+    fr = frontier_lib.Frontier(one.states[0], one.count[0], one.dropped[0])
+    expanded, dropped = expanded[0], dropped[0]
     tr = telemetry.get(tracker)
     tr.count(dispatches=1)
     event = None

@@ -91,7 +91,18 @@ def wavefront_expand(adj, states, valid, k, allowed, *, n: int,
     feasibility test and the enabled pruning rules (simplicial collapse,
     then the MMW prune, as the reference).
 
-    Returns (children (B, n, W) int32 words, feasible (B, n) bool)."""
+    Returns (children (B, n, W) int32 words, feasible (B, n) bool).  With a
+    leading lane axis (adj (L, n, W), states (L, B, W), valid (L, B), k an
+    (L,) tensor, allowed (L, W)) each lane is expanded on its own and the
+    outputs gain the lane axis."""
+    if states.dim() == 3:
+        outs = [wavefront_expand(adj[i], states[i], valid[i], kk,
+                                 allowed[i], n=n, schedule=schedule,
+                                 use_mmw=use_mmw,
+                                 use_simplicial=use_simplicial)
+                for i, kk in enumerate(k.tolist())]
+        return (torch.stack([c for c, _ in outs]),
+                torch.stack([f for _, f in outs]))
     children, feasible, _deg, reach = expand_block(
         adj, states, valid, k, allowed, n, schedule=schedule)
     if use_simplicial:

@@ -9,6 +9,10 @@ tensors on one device.
 ``from_numpy`` / ``to_numpy`` carry frontiers across the two packages as
 numpy ``uint32`` words: a JAX frontier snapshot seeds the port's engine,
 and the port's frontier comes back in the reference's layout.
+
+A lane-batched frontier (``lane_frontiers``) is the same dataclass with a
+leading lane axis on every field: states ``(L, cap, W)``, count and
+dropped ``(L,)``.  The multi-lane engine (``core.batch``) carries one.
 """
 from __future__ import annotations
 
@@ -22,42 +26,58 @@ from . import bitset
 
 @dataclasses.dataclass
 class Frontier:
-    states: torch.Tensor     # (cap, W) int32 words
-    count: torch.Tensor      # () int32
-    dropped: torch.Tensor    # () int32 — overflow accumulator
+    states: torch.Tensor     # ([L,] cap, W) int32 words
+    count: torch.Tensor      # ([L],) int32
+    dropped: torch.Tensor    # ([L],) int32 — overflow accumulator
 
     @property
     def cap(self) -> int:
-        return self.states.shape[0]
+        return self.states.shape[-2]
 
     @property
     def w(self) -> int:
         return self.states.shape[1]
 
     def to_numpy(self) -> tuple:
-        """(states (cap, W) uint32, count, dropped) on the host."""
+        """(states ([L,] cap, W) uint32, count, dropped) on the host; the
+        counts are ints, or (L,) int32 arrays with a lane axis."""
+        if self.states.dim() == 3:
+            return (bitset.from_words(self.states),
+                    self.count.cpu().numpy(), self.dropped.cpu().numpy())
         return (bitset.from_words(self.states), int(self.count),
                 int(self.dropped))
 
 
-def _scalar(x: int, device) -> torch.Tensor:
-    return torch.tensor(int(x), dtype=torch.int32, device=device)
+def _counts(x, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(x, dtype=np.int64),
+                           device=device).to(torch.int32)
 
 
 def empty_frontier(cap: int, w: int, device) -> Frontier:
     """Frontier holding just the empty set (the DP root)."""
     return Frontier(states=torch.zeros((cap, w), dtype=torch.int32,
                                        device=device),
-                    count=_scalar(1, device), dropped=_scalar(0, device))
+                    count=_counts(1, device), dropped=_counts(0, device))
 
 
-def from_numpy(states_u32: np.ndarray, count: int, dropped: int,
+def lane_frontiers(lanes: int, cap: int, w: int, device) -> Frontier:
+    """Batched DP roots: one ``{∅}`` frontier per lane."""
+    return Frontier(states=torch.zeros((lanes, cap, w), dtype=torch.int32,
+                                       device=device),
+                    count=torch.ones((lanes,), dtype=torch.int32,
+                                     device=device),
+                    dropped=torch.zeros((lanes,), dtype=torch.int32,
+                                        device=device))
+
+
+def from_numpy(states_u32: np.ndarray, count, dropped,
                device) -> Frontier:
-    """Frontier from a host ``(cap, W)`` uint32 buffer (e.g. a JAX
-    frontier snapshot)."""
+    """Frontier from a host ``([L,] cap, W)`` uint32 buffer (e.g. a JAX
+    frontier snapshot); ``count`` and ``dropped`` are ints, or (L,)
+    arrays with a lane axis."""
     return Frontier(states=bitset.to_words(states_u32, device),
-                    count=_scalar(count, device),
-                    dropped=_scalar(dropped, device))
+                    count=_counts(count, device),
+                    dropped=_counts(dropped, device))
 
 
 def frontier_bytes(cap: int, w: int, lanes: int = 1) -> int:
@@ -68,3 +88,8 @@ def frontier_bytes(cap: int, w: int, lanes: int = 1) -> int:
 def to_host(f: Frontier) -> np.ndarray:
     """Materialise the live rows as uint32 (for reconstruction)."""
     return bitset.from_words(f.states[:int(f.count)])
+
+
+def lane_to_host(f: Frontier, lane: int) -> np.ndarray:
+    """Materialise one lane's live rows of a lane-batched frontier."""
+    return bitset.from_words(f.states[lane, :int(f.count[lane])])

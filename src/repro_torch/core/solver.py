@@ -321,12 +321,20 @@ def solve_block(g: Graph, *, cap: Optional[int], block: int, mode: str,
                 m_bits: int = engine_lib.DEFAULT_M_BITS,
                 k_hashes: int = bloom.DEFAULT_K,
                 use_simplicial: bool = False, engine: str = "fused",
-                seed: int = 0, tracker=None, device=None) -> SolveResult:
+                lanes: int = 1, seed: int = 0, tracker=None,
+                device=None) -> SolveResult:
     """Iterative deepening on one (biconnected) block.
 
     ``cap=None`` right-sizes the frontier buffer with
     ``batch.plan_capacity`` (drop-free state bound, clamped to
-    ``batch.DEFAULT_CAP``)."""
+    ``batch.DEFAULT_CAP``).
+
+    ``lanes > 1`` is speculative deepening: ``k, k+1, ..., k+lanes-1`` are
+    decided in one multi-lane dispatch (``batch.decide_batch``) and the
+    smallest feasible rung wins.  Rungs above it are dropped uncounted,
+    so widths, exactness, ``expanded`` and ``per_k`` are those of
+    ``lanes=1``.  ``engine="host"`` and ``reconstruct=True`` need the
+    single-lane loop and run sequential rungs."""
     t0 = time.time()
     tr = telemetry.get(tracker)
     plan = plan_block(g, use_clique=use_clique, use_paths=use_paths,
@@ -337,6 +345,9 @@ def solve_block(g: Graph, *, cap: Optional[int], block: int, mode: str,
         cap = batch_lib.plan_capacity(g.n, block=block)
     tr.gauge("frontier_cap", cap)
 
+    spec = max(1, int(lanes))
+    if spec > 1 and (reconstruct or engine != "fused"):
+        spec = 1          # snapshots and the host loop are single-lane only
     decide_kw = dict(cap=cap, block=block, mode=mode, use_mmw=use_mmw,
                      m_bits=m_bits, k_hashes=k_hashes, schedule=schedule,
                      backend=backend, use_simplicial=use_simplicial,
@@ -344,33 +355,45 @@ def solve_block(g: Graph, *, cap: Optional[int], block: int, mode: str,
     per_k: dict = {}
     expanded_total = 0
     any_inexact = False
-    for k in range(plan.k0, plan.ub):
-        res = decide(plan.graph_at(k), k, plan.clique,
-                     keep_levels=reconstruct, engine=engine, tracker=tr,
-                     **decide_kw)
-        expanded_total += res.expanded
-        counts = dict(rungs_decided=1, expanded=res.expanded)
-        if res.inexact:
-            counts["rung_overflows"] = 1
-        tr.count(**counts)
-        per_k[k] = {"feasible": res.feasible, "inexact": res.inexact,
-                    "expanded": res.expanded}
-        if verbose:
-            print(f"  [{g.name}] k={k} feasible={res.feasible} "
-                  f"expanded={res.expanded} inexact={res.inexact}",
-                  flush=True)
-        if res.feasible:
-            order = None
-            if reconstruct:
-                order = reconstruct_order(plan.graph_at(k), k, plan.clique,
-                                          res.levels)
-            return SolveResult(k, plan.exact_at(k, any_inexact), plan.lb,
-                               plan.ub, expanded_total, time.time() - t0,
-                               order, per_k)
-        if res.inexact:
-            # a state leading to a width-k order may have been dropped:
-            # anything concluded beyond this k is a candidate value only
-            any_inexact = True
+    k = plan.k0
+    while k < plan.ub:
+        ks = list(range(k, min(k + spec, plan.ub)))
+        if spec > 1:
+            with tr.time_block("rung_s"):
+                results = batch_lib.decide_batch(
+                    g, ks, plan.clique,
+                    graphs=[plan.graph_at(kk) for kk in ks], tracker=tr,
+                    **decide_kw)
+        else:
+            results = [decide(plan.graph_at(k), k, plan.clique,
+                              keep_levels=reconstruct, engine=engine,
+                              tracker=tr, **decide_kw)]
+        for kk, res in zip(ks, results):
+            expanded_total += res.expanded
+            counts = dict(rungs_decided=1, expanded=res.expanded)
+            if res.inexact:
+                counts["rung_overflows"] = 1
+            tr.count(**counts)
+            per_k[kk] = {"feasible": res.feasible, "inexact": res.inexact,
+                         "expanded": res.expanded}
+            if verbose:
+                print(f"  [{g.name}] k={kk} feasible={res.feasible} "
+                      f"expanded={res.expanded} inexact={res.inexact}",
+                      flush=True)
+            if res.feasible:
+                order = None
+                if reconstruct:
+                    order = reconstruct_order(plan.graph_at(kk), kk,
+                                              plan.clique, res.levels)
+                return SolveResult(kk, plan.exact_at(kk, any_inexact),
+                                   plan.lb, plan.ub, expanded_total,
+                                   time.time() - t0, order, per_k)
+            if res.inexact:
+                # a state leading to a width-k order may have been
+                # dropped: anything concluded beyond this k is a
+                # candidate value only
+                any_inexact = True
+        k = ks[-1] + 1
     return SolveResult(plan.ub, not any_inexact, plan.lb, plan.ub,
                        expanded_total, time.time() - t0, plan.ub_order,
                        per_k)
@@ -432,7 +455,9 @@ def solve(g: Graph, *, cap: Optional[int] = None, block: int = 1 << 11,
     maps.  ``mode="bloom"`` dedups with an ``m_bits``-bit Bloom filter
     probed ``k_hashes`` times per state (the paper's configuration, with
     ``use_mmw=True``); ``use_mmw`` and ``use_simplicial`` turn on the MMW
-    prune and the simplicial collapse.  ``lanes``, ``shards`` and
+    prune and the simplicial collapse.  ``lanes > 1`` decides that many
+    consecutive rungs per dispatch (speculative deepening, same results);
+    across instances, see ``batch.solve_many``.  ``shards`` and
     ``heuristics`` are not ported and raise ``BackendCapabilityError``
     before any work."""
     t0 = time.time()
@@ -452,8 +477,8 @@ def solve(g: Graph, *, cap: Optional[int] = None, block: int = 1 << 11,
                     m_bits=m_bits, k_hashes=k_hashes, schedule=schedule,
                     use_clique=use_clique, use_paths=use_paths,
                     start_k=start_k, verbose=verbose, backend=backend,
-                    use_simplicial=use_simplicial, engine=engine, seed=seed,
-                    tracker=tracker, device=device)
+                    use_simplicial=use_simplicial, engine=engine,
+                    lanes=lanes, seed=seed, tracker=tracker, device=device)
     if not use_preprocess:
         return solve_block(g, reconstruct=reconstruct, **solve_kw)
 

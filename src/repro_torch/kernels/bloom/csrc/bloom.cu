@@ -25,6 +25,13 @@
 // owner is an int32 scratch of m_bits entries that the wrapper keeps per
 // filter size and device, all INT_MAX between calls.
 //
+// Lanes: one call inserts the rows of every lane of a multi-lane dispatch
+// into that lane's own filter (the reference's batched Pallas kernel under
+// vmap).  Rows are numbered lanes*B deep; row g belongs to lane g / B, has
+// the lane-local index i = g mod B, and probes its lane's filter words and
+// owner entries (one m_bits scratch per lane).  Claims are lane-local
+// indices, so row order holds within each lane and lanes never meet.
+//
 // What bounds it on this card: bytes.  Each valid row reads W words and
 // touches k_hashes random filter words (and owner entries where the bit
 // is zero); the hashes are a few dozen integer operations a row.  In
@@ -102,14 +109,32 @@ __device__ __forceinline__ int row_stride() {
   return gridDim.x * blockDim.x;
 }
 
+// The lane of row g and its filter words and owner entries.
+struct LaneRow {
+  int i;                 // lane-local row index
+  size_t filt_off;       // words from the first lane's filter
+  size_t owner_off;      // entries from the first lane's owner scratch
+};
+
+__device__ __forceinline__ LaneRow lane_row(int g, int n_rows,
+                                            uint32_t m_bits) {
+  const int l = g / n_rows;
+  return {g - l * n_rows, (size_t)l * (m_bits / 32), (size_t)l * m_bits};
+}
+
 __global__ void claim_kernel(const uint32_t* __restrict__ states,
                              const uint8_t* __restrict__ valid, int w,
-                             int n_rows, uint32_t m_bits, int k_hashes,
-                             const uint32_t* __restrict__ filt,
-                             int* __restrict__ owner) {
-  for (int i = first_row(); i < n_rows; i += row_stride()) {
-    if (!valid[i]) continue;
-    const uint32_t* row = states + (size_t)i * w;
+                             int n_rows, int total_rows, uint32_t m_bits,
+                             int k_hashes,
+                             const uint32_t* __restrict__ filt_all,
+                             int* __restrict__ owner_all) {
+  for (int g = first_row(); g < total_rows; g += row_stride()) {
+    if (!valid[g]) continue;
+    const LaneRow lr = lane_row(g, n_rows, m_bits);
+    const int i = lr.i;
+    const uint32_t* filt = filt_all + lr.filt_off;
+    int* owner = owner_all + lr.owner_off;
+    const uint32_t* row = states + (size_t)g * w;
     const uint32_t h1 = murmur3(row, w, kSeed1);
     const uint32_t h2 = murmur3(row, w, kSeed2);
     for (int j0 = 0; j0 < k_hashes; j0 += kGroup) {
@@ -130,13 +155,18 @@ __global__ void claim_kernel(const uint32_t* __restrict__ states,
 // sees set was set by p's owner.
 __global__ void resolve_kernel(const uint32_t* __restrict__ states,
                                const uint8_t* __restrict__ valid, int w,
-                               int n_rows, uint32_t m_bits, int k_hashes,
-                               uint32_t* filt, int* owner,
+                               int n_rows, int total_rows, uint32_t m_bits,
+                               int k_hashes, uint32_t* filt_all,
+                               int* owner_all,
                                uint8_t* __restrict__ was_new) {
-  for (int i = first_row(); i < n_rows; i += row_stride()) {
+  for (int g = first_row(); g < total_rows; g += row_stride()) {
     bool fresh = false;
-    if (valid[i]) {
-      const uint32_t* row = states + (size_t)i * w;
+    if (valid[g]) {
+      const LaneRow lr = lane_row(g, n_rows, m_bits);
+      const int i = lr.i;
+      uint32_t* filt = filt_all + lr.filt_off;
+      int* owner = owner_all + lr.owner_off;
+      const uint32_t* row = states + (size_t)g * w;
       const uint32_t h1 = murmur3(row, w, kSeed1);
       const uint32_t h2 = murmur3(row, w, kSeed2);
       for (int j0 = 0; j0 < k_hashes; j0 += kGroup) {
@@ -159,7 +189,7 @@ __global__ void resolve_kernel(const uint32_t* __restrict__ states,
         }
       }
     }
-    was_new[i] = fresh ? 1 : 0;
+    was_new[g] = fresh ? 1 : 0;
   }
 }
 
@@ -189,16 +219,22 @@ int resident_blocks(int threads) {
 
 }  // namespace
 
-// Returns a cudaError_t: 0 when both launches were accepted.  threads is
-// a multiple of 32.
+// Inserts n_rows rows of each of `lanes` lanes: states (lanes, n_rows, w),
+// valid and was_new (lanes, n_rows), filt (lanes, m_bits / 32) and owner
+// (lanes, m_bits), all contiguous; m_bits is a multiple of 32.  Returns a
+// cudaError_t: 0 when both launches were accepted.  threads is a multiple
+// of 32.
 extern "C" int bloom_launch(const void* states, const void* valid, int w,
-                            int n_rows, unsigned m_bits, int k_hashes,
-                            void* filt, void* owner, void* was_new,
-                            int threads, void* stream) {
-  if (n_rows <= 0) return cudaSuccess;
-  if (threads <= 0 || threads % 32) return cudaErrorInvalidValue;
+                            int n_rows, int lanes, unsigned m_bits,
+                            int k_hashes, void* filt, void* owner,
+                            void* was_new, int threads, void* stream) {
+  if (n_rows <= 0 || lanes <= 0) return cudaSuccess;
+  if (threads <= 0 || threads % 32 || m_bits % 32 ||
+      (long long)n_rows * lanes > INT_MAX)
+    return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int needed = (n_rows + threads - 1) / threads;
+  const int total = n_rows * lanes;
+  const int needed = (total + threads - 1) / threads;
   const int claim_blocks =
       std::min(needed, resident_blocks<claim_kernel>(threads));
   const int resolve_blocks =
@@ -208,12 +244,12 @@ extern "C" int bloom_launch(const void* states, const void* valid, int w,
   const uint8_t* v = static_cast<const uint8_t*>(valid);
   int* own = static_cast<int*>(owner);
   uint32_t* f = static_cast<uint32_t*>(filt);
-  claim_kernel<<<claim_blocks, threads, 0, st>>>(s, v, w, n_rows, m_bits,
-                                                 k_hashes, f, own);
+  claim_kernel<<<claim_blocks, threads, 0, st>>>(s, v, w, n_rows, total,
+                                                 m_bits, k_hashes, f, own);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   resolve_kernel<<<resolve_blocks, threads, 0, st>>>(
-      s, v, w, n_rows, m_bits, k_hashes, f, own,
+      s, v, w, n_rows, total, m_bits, k_hashes, f, own,
       static_cast<uint8_t*>(was_new));
   return cudaGetLastError();
 }

@@ -24,6 +24,14 @@
 // in practice launch latency and the length of each warp's dependent chain
 // set its time.
 //
+// Lanes: one launch serves every lane of a multi-lane dispatch (the
+// reference gets this axis from pallas_call's batching rule under vmap).
+// Each lane has its own adjacency, states, valid rows, allowed mask, k and
+// outputs, all B rows deep; the grid's y dimension is the lane, so a block
+// loads only its own lane's adjacency and its shared memory does not grow
+// with the lane count.  k comes from a device array per lane (no host
+// read), or as a plain argument for a single lane.
+//
 // Design: one warp per state, WARPS_PER_BLOCK states per block, the
 // adjacency in shared memory once per block.  Each lane keeps its W rows
 // of z, nb and reach in registers (rt::reach_rows in
@@ -50,9 +58,11 @@ using rt::kWarp;
 template <int W, bool MMW, bool SIMP>
 __global__ void wavefront_kernel(const uint32_t* __restrict__ adj,
                                  const uint32_t* __restrict__ states,
+                                 size_t states_lane_stride,
                                  const uint8_t* __restrict__ valid,
                                  const uint32_t* __restrict__ allowed,
-                                 int k, int n, int n_states,
+                                 int k, const int* __restrict__ k_lanes,
+                                 int n, int n_states,
                                  uint32_t* __restrict__ children,
                                  uint8_t* __restrict__ feasible) {
   extern __shared__ uint32_t smem[];
@@ -60,6 +70,17 @@ __global__ void wavefront_kernel(const uint32_t* __restrict__ adj,
   const int warp = threadIdx.x / kWarp;
   const int warps = blockDim.x / kWarp;
   const int nw = n * W;
+
+  // the dispatch lane of this block (blockIdx.y): its own adjacency,
+  // states, k and outputs
+  const size_t l = blockIdx.y;
+  adj += l * nw;
+  states += l * states_lane_stride;
+  valid += l * n_states;
+  allowed += l * W;
+  children += l * n_states * nw;
+  feasible += l * n_states * n;
+  if (k_lanes != nullptr) k = k_lanes[l];
 
   uint32_t* s_adj = smem;
   for (int i = threadIdx.x; i < nw; i += blockDim.x) s_adj[i] = adj[i];
@@ -119,68 +140,77 @@ __global__ void wavefront_kernel(const uint32_t* __restrict__ adj,
   }
 }
 
+// The launch arguments every instantiation shares.
+struct Args {
+  const void* adj;
+  const void* states;
+  size_t states_lane_stride;   // words from one lane's states to the next
+  const void* valid;
+  const void* allowed;
+  int k;
+  const int* k_lanes;          // (lanes,) per-lane k on the device, or null
+  int n, n_states, lanes, warps_per_block;
+  void* children;
+  void* feasible;
+  cudaStream_t stream;
+};
+
 template <int W, bool MMW, bool SIMP>
-cudaError_t launch(const void* adj, const void* states, const void* valid,
-                   const void* allowed, int k, int n, int n_states,
-                   int warps_per_block, void* children, void* feasible,
-                   cudaStream_t stream) {
+cudaError_t launch(const Args& a) {
   // at most 40 KB (n = 256, W = 8, the simplicial rule, 4 warps), under
   // the 48 KB a launch may take without cudaFuncSetAttribute; a launch
   // that asks for more is refused and reported
-  const size_t per_warp = SIMP ? (size_t)n * W : 0;
+  const size_t per_warp = SIMP ? (size_t)a.n * W : 0;
   const size_t smem =
-      sizeof(uint32_t) * ((size_t)n * W + per_warp * warps_per_block);
-  const int blocks = (n_states + warps_per_block - 1) / warps_per_block;
+      sizeof(uint32_t) * ((size_t)a.n * W + per_warp * a.warps_per_block);
+  const dim3 grid((a.n_states + a.warps_per_block - 1) / a.warps_per_block,
+                  a.lanes);
   wavefront_kernel<W, MMW, SIMP>
-      <<<blocks, warps_per_block * kWarp, smem, stream>>>(
-          static_cast<const uint32_t*>(adj),
-          static_cast<const uint32_t*>(states),
-          static_cast<const uint8_t*>(valid),
-          static_cast<const uint32_t*>(allowed), k, n, n_states,
-          static_cast<uint32_t*>(children), static_cast<uint8_t*>(feasible));
+      <<<grid, a.warps_per_block * kWarp, smem, a.stream>>>(
+          static_cast<const uint32_t*>(a.adj),
+          static_cast<const uint32_t*>(a.states), a.states_lane_stride,
+          static_cast<const uint8_t*>(a.valid),
+          static_cast<const uint32_t*>(a.allowed), a.k, a.k_lanes, a.n,
+          a.n_states, static_cast<uint32_t*>(a.children),
+          static_cast<uint8_t*>(a.feasible));
   return cudaGetLastError();
 }
 
 template <int W>
-cudaError_t launch_flags(bool mmw, bool simp, const void* adj,
-                         const void* states, const void* valid,
-                         const void* allowed, int k, int n, int n_states,
-                         int warps_per_block, void* children, void* feasible,
-                         cudaStream_t stream) {
-  if (mmw && simp)
-    return launch<W, true, true>(adj, states, valid, allowed, k, n, n_states,
-                                 warps_per_block, children, feasible, stream);
-  if (mmw)
-    return launch<W, true, false>(adj, states, valid, allowed, k, n,
-                                  n_states, warps_per_block, children,
-                                  feasible, stream);
-  if (simp)
-    return launch<W, false, true>(adj, states, valid, allowed, k, n,
-                                  n_states, warps_per_block, children,
-                                  feasible, stream);
-  return launch<W, false, false>(adj, states, valid, allowed, k, n, n_states,
-                                 warps_per_block, children, feasible, stream);
+cudaError_t launch_flags(bool mmw, bool simp, const Args& a) {
+  if (mmw && simp) return launch<W, true, true>(a);
+  if (mmw) return launch<W, true, false>(a);
+  if (simp) return launch<W, false, true>(a);
+  return launch<W, false, false>(a);
 }
 
 }  // namespace
 
 extern "C" int wavefront_max_words() { return 8; }
 
-// Returns a cudaError_t: 0 on a clean launch.
+// One launch expands n_states rows of every one of `lanes` lanes: lane l
+// reads adj + l*n*w, states + l*states_lane_stride, valid + l*n_states,
+// allowed + l*w and k_lanes[l] (or k when k_lanes is null) and writes
+// children + l*n_states*n*w and feasible + l*n_states*n.  Returns a
+// cudaError_t: 0 on a clean launch.
 extern "C" int wavefront_launch(const void* adj, const void* states,
-                                const void* valid, const void* allowed, int k,
-                                int n, int w, int n_states,
+                                size_t states_lane_stride, const void* valid,
+                                const void* allowed, int k,
+                                const void* k_lanes, int n, int w,
+                                int n_states, int lanes,
                                 int warps_per_block, int use_mmw,
                                 int use_simplicial, void* children,
                                 void* feasible, void* stream) {
-  if (n_states <= 0) return cudaSuccess;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n_states <= 0 || lanes <= 0) return cudaSuccess;
+  if (lanes > 65535) return cudaErrorInvalidValue;     // gridDim.y
+  const Args a{adj, states, states_lane_stride, valid, allowed, k,
+               static_cast<const int*>(k_lanes), n, n_states, lanes,
+               warps_per_block, children, feasible,
+               static_cast<cudaStream_t>(stream)};
   const bool mmw = use_mmw != 0, simp = use_simplicial != 0;
-#define RT_CASE(WW)                                                         \
-  case WW:                                                                  \
-    return launch_flags<WW>(mmw, simp, adj, states, valid, allowed, k, n,   \
-                            n_states, warps_per_block, children, feasible,  \
-                            st);
+#define RT_CASE(WW) \
+  case WW:          \
+    return launch_flags<WW>(mmw, simp, a);
   switch (w) {
     RT_CASE(1) RT_CASE(2) RT_CASE(3) RT_CASE(4)
     RT_CASE(5) RT_CASE(6) RT_CASE(7) RT_CASE(8)

@@ -5,12 +5,14 @@
     python -m repro_torch.launch.solve --graph myciel4 --device cpu
     python -m repro_torch.launch.solve --graph queen5_5 --mode bloom --mmw
     python -m repro_torch.launch.solve --graph queen5_5 --simplicial
+    python -m repro_torch.launch.solve --graph myciel4 --batch 4
     python -m repro_torch.launch.solve --dimacs path/to/graph.gr
 
 Takes the flags of ``repro.launch.solve``.  ``--device`` defaults to
 ``cuda`` and ``--backend`` to ``cuda`` on a card (the hand-written
-kernels) or ``torch`` elsewhere (the plain ops).  Flags this package does
-not port yet (``--batch``, ``--shards``, ``--donate-ratio``,
+kernels) or ``torch`` elsewhere (the plain ops).  ``--batch L`` decides L
+consecutive rungs per dispatch (speculative deepening, same results).
+Flags this package does not port yet (``--shards``, ``--donate-ratio``,
 ``--heuristics``, ``--distributed``, ``--devices`` and schedules other
 than ``doubling``) are rejected with a capability error before any
 work.
@@ -101,7 +103,8 @@ def main(argv=None):
         use_clique=not args.no_clique, use_paths=not args.no_paths,
         use_preprocess=not args.no_preprocess,
         reconstruct=args.reconstruct, verbose=args.verbose,
-        engine=args.engine, seed=args.seed, device=device)
+        engine=args.engine, lanes=args.batch, seed=args.seed,
+        device=device)
 
     print(f"[solve] treewidth={res.width} exact={res.exact} "
           f"lb={res.lb} ub={res.ub} states_expanded={res.expanded} "

@@ -175,3 +175,116 @@ def test_wrappers_count_their_launches(dev):
     bloom_kernel.bloom_insert(filt, args[1], args[2], m_bits=1 << 10,
                               k_hashes=3)
     assert bloom_kernel.ops.LAUNCHES == before + 1
+
+
+# ------------------------------------------------------------- lane forms
+
+LANES = (1, 3, 8)
+
+
+def _lane_inputs(n, b, lanes, seed, dev):
+    """Per-lane graphs, states, ragged valid rows (lane 1 has none), an
+    (L,) int32 k and allowed masks."""
+    rng = np.random.RandomState(seed)
+    per = [_inputs(n, b, seed + i, dev) for i in range(lanes)]
+    valid = torch.from_numpy(
+        np.arange(b)[None] < rng.randint(1, b + 1, size=(lanes, 1))).to(dev)
+    if lanes > 1:
+        valid[1] = False
+    k = torch.tensor(rng.randint(n // 4, n // 2 + 1, size=lanes),
+                     dtype=torch.int32, device=dev)
+    return (torch.stack([p[0] for p in per]),
+            torch.stack([p[1] for p in per]), valid, k,
+            torch.stack([p[4] for p in per]))
+
+
+@pytest.mark.parametrize("flags", FLAGS,
+                         ids=["none", "mmw", "simplicial", "mmw+simplicial"])
+def test_lane_wavefront_kernel_matches_plain_version(dev, flags):
+    kw = dict(use_mmw=flags[0], use_simplicial=flags[1])
+    for n in (17, 33, 49, 100):
+        for lanes in LANES:
+            for b in (7, 128):
+                args = _lane_inputs(n, b, lanes, seed=n + b + lanes, dev=dev)
+                gc, gf = wavefront_kernel.wavefront_expand(*args, n=n, **kw)
+                wc, wf = wavefront_kernel.wavefront_ref(*args, n=n, **kw)
+                assert torch.equal(gc, wc) and torch.equal(gf, wf), \
+                    (n, lanes, b)
+                if lanes > 1:
+                    assert not gf[1].any()
+    # a lane-strided view, as the engine's chunks of a frontier are
+    adj, states, valid, k, allowed = _lane_inputs(49, 2048, 8, 1, dev)
+    buf = torch.zeros((8, 3 * 2048, states.shape[-1]), dtype=torch.int32,
+                      device=dev)
+    buf[:, 2048:4096] = states
+    view = buf[:, 2048:4096]
+    got = wavefront_kernel.wavefront_expand(adj, view, valid, k, allowed,
+                                            n=49, **kw)
+    want = wavefront_kernel.wavefront_ref(adj, states, valid, k, allowed,
+                                          n=49, **kw)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("m_bits,k", [(64, 3), (1 << 14, 17),
+                                      (1 << 24, 17)])
+def test_lane_bloom_kernel_matches_plain_version(dev, m_bits, k):
+    """One filter per lane, carried from batch to batch, a lane with no
+    valid row; at 64 bits rows share probe bits."""
+    for lanes in LANES:
+        rng = np.random.RandomState(m_bits + k + lanes)
+        filt = bloom_kernel.make_filter_words(m_bits, device=dev,
+                                              lanes=lanes)
+        for b in (1, 300, 4096):
+            states = rng.randint(0, 2**32, size=(lanes, b, 2),
+                                 dtype=np.uint64).astype(np.uint32)
+            states[:, 1::3] = states[:, ::3][:, :states[:, 1::3].shape[1]]
+            s = bitset.to_words(states, dev)
+            v = torch.from_numpy(rng.rand(lanes, b) < 0.9).to(dev)
+            if lanes > 1:
+                v[1] = False
+            want = bloom_kernel.bloom_insert_ref(filt.clone(), s, v,
+                                                 m_bits=m_bits, k_hashes=k)
+            got = bloom_kernel.bloom_insert(filt, s, v, m_bits=m_bits,
+                                            k_hashes=k)
+            assert torch.equal(got[0], want[0]), (lanes, b)
+            assert torch.equal(got[1], want[1]), (lanes, b)
+
+
+def test_lane_dispatch_launches_once_per_chunk_of_all_lanes(dev,
+                                                            monkeypatch):
+    """A dispatch of L lanes launches the wavefront kernel max_l chunks_l
+    times per level (each launch covering every live lane), not
+    sum_l chunks_l, and the Bloom kernel as often in Bloom mode."""
+    from repro_torch.core import batch, engine
+    levels = []
+    step = engine._level_step
+
+    def spy(adj, allowed, k, fr, counts, live, **kw):
+        levels.append([c for c, on in zip(counts, live) if on])
+        return step(adj, allowed, k, fr, counts, live, **kw)
+
+    monkeypatch.setattr(engine, "_level_step", spy)
+    lanes = [batch.Lane(graph.myciel(4), 8), batch.Lane(graph.petersen(), 3),
+             batch.Lane(graph.myciel(4), 9), batch.Lane(graph.petersen(), 4)]
+    block = 256
+
+    def chunks(c):
+        own = engine.SMALL_BLOCK if c <= engine.SMALL_BLOCK else block
+        return -(-c // own)
+
+    for mode in ("sort", "bloom"):
+        levels.clear()
+        wf0, bl0 = (wavefront_kernel.ops.LAUNCHES,
+                    bloom_kernel.ops.LAUNCHES)
+        by_lanes = dict(wavefront_kernel.ops.LAUNCHES_BY_LANES)
+        batch.decide_lanes(lanes, cap=4096, block=block, mode=mode,
+                           use_mmw=False, m_bits=1 << 12, k_hashes=4,
+                           device=dev)
+        want = sum(max(chunks(c) for c in lv) for lv in levels)
+        assert want < sum(chunks(c) for lv in levels for c in lv)
+        assert wavefront_kernel.ops.LAUNCHES - wf0 == want
+        assert bloom_kernel.ops.LAUNCHES - bl0 == \
+            (want if mode == "bloom" else 0)
+        grew = {n: v - by_lanes.get(n, 0) for n, v in
+                wavefront_kernel.ops.LAUNCHES_BY_LANES.items()}
+        assert sum(grew.values()) == want and grew.get(4, 0) > 0

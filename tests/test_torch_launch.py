@@ -29,7 +29,7 @@ def _port_graph(g):
     (dict(schedule="linear"), "A3"), (dict(schedule="matmul"), "A3"),
     (dict(backend="cuda", mode="bloom", m_bits=100), "multiple of 32"),
     (dict(schedule="while"), "A3"),
-    (dict(lanes=2), "A8"), (dict(shards=2), "A10"),
+    (dict(lanes=0), "lanes must be"), (dict(shards=2), "A10"),
     (dict(heuristics=1), "A9"), (dict(backend="cuda"), "CUDA device")])
 def test_unported_flags_fail_before_work(kw, item):
     g = _port_graph(oracle.make_graph("petersen"))
@@ -115,9 +115,14 @@ def test_cli_smoke_matches_reference_line():
     assert out.returncode == 0, out.stderr
     assert ("[solve] treewidth=18 exact=True lb=12 ub=18 "
             "states_expanded=2279") in out.stdout
+    out = _run(["repro_torch.launch.solve", "--graph", "queen5_5",
+                "--device", "cpu", "--batch", "4"], module=True)
+    assert out.returncode == 0, out.stderr
+    assert ("[solve] treewidth=18 exact=True lb=12 ub=18 "
+            "states_expanded=2279") in out.stdout
     out = _run(["repro_torch.launch.solve", "--graph", "petersen",
-                "--device", "cpu", "--batch", "2"], module=True)
-    assert out.returncode == 2 and "A8" in out.stderr
+                "--device", "cpu", "--batch", "0"], module=True)
+    assert out.returncode == 2 and "lanes must be" in out.stderr
 
 
 def test_import_hygiene_no_jax_no_repro():
@@ -153,6 +158,26 @@ def test_chip_smoke_expected_values_come_from_reference(name):
     chip_smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(chip_smoke)
     want = chip_smoke.EXPECTED[name]
+    got = ref_solver.solve(ref_graph.REGISTRY[name]())
+    assert (got.width, got.exact, got.lb, got.ub, got.expanded) == (
+        want["width"], want["exact"], want["lb"], want["ub"],
+        want["expanded"])
+    assert got.per_k == {want["block"]: {
+        k: {"feasible": f, "inexact": i, "expanded": e}
+        for k, f, i, e in want["per_k"]}}
+
+
+@pytest.mark.parametrize("name", ["petersen", "myciel3", "queen5_5"])
+def test_chip_smoke_suite_values_in_sort_mode_are_sequential(name):
+    """``solve_many``'s default configuration gives each instance its
+    sequential ``solve`` result (no padding caveat applies), so the lane
+    phase's expected defaults are the reference's ``solve`` values."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    want = chip_smoke.EXPECTED_MANY["defaults"][name]
     got = ref_solver.solve(ref_graph.REGISTRY[name]())
     assert (got.width, got.exact, got.lb, got.ub, got.expanded) == (
         want["width"], want["exact"], want["lb"], want["ub"],
