@@ -14,7 +14,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
      over sweeps of shapes with invalid rows, words whose bit 31 is set,
      duplicate rows and forced probe collisions; and the lane forms of
      the wavefront and Bloom kernels (one launch for L lanes, L in 1, 3
-     and 8, ragged valid rows and a lane with none);
+     and 8, ragged valid rows and a lane with none), and both lane forms
+     as the sharded engine drives them (SHARDS lanes sharing one
+     adjacency, allowed mask and k; SHARDS 2^24-bit filters taking 2^17
+     rows each, carried across two levels);
   3. main paths: ``repro_torch.core.solver.solve(g)`` on petersen,
      myciel4, queen5_5, queen6_6 and queen7_7 with its defaults (cuda
      device and backend, cap auto, block 2048), with the paper's
@@ -46,7 +49,20 @@ Phases, each fatal on failure (non-zero exit, no result line):
      EXPECTED_MANY); each path with its launch counts set to 0 just
      before it and read just after, failing unless its kernels launched
      and some wavefront launch covered several lanes; and the suite's
-     wall under ``solve_many`` beside the sequential ``solve`` loop.
+     wall under ``solve_many`` beside the sequential ``solve`` loop;
+  7. shard paths: ``solve(g, shards=4)`` on the five instances under the
+     defaults and the paper's configuration, against EXPECTED_SHARDS
+     (``repro.core.solver.solve(g, shards=4)`` on the CPU), each path
+     with its launch counts set to 0 just before it and read just after,
+     failing unless every wavefront launch and Bloom call covered all 4
+     shards; a forced-donation solve (counters must fire) and a sharded
+     reconstruction; the walls beside phase 3's; then one sharded
+     queen7_7 rung under ``torch.profiler`` with the routing sort and the
+     owner dedup in ranges of their own;
+  8. heuristics: ``solve(g, heuristics=8)`` on the five instances against
+     EXPECTED_HEUR, and ``bounds_engine.ub_orders_async`` on the card over
+     every REGISTRY graph with two seeds against the JAX package's widths
+     (EXPECTED_UB), with the sweep timed per dispatch.
 
 The second-to-last line is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or ``repro``.
@@ -246,6 +262,77 @@ EXPECTED_MANY = {
                    (6, True, False, 116708)]),
     },
 }
+# The shard paths.  ``solve(g, shards=SHARDS, **config)`` on MAIN_PATH at
+# full size (cap auto: each shard gets the unsharded plan, 2^17 rows at
+# queen7_7; block 2048; 2^24-bit filters).  The expected values are
+# ``repro.core.solver.solve(g, shards=SHARDS, **config)`` on the CPU
+# (backend "jax").  Without overflow, sort mode is bit-identical to the
+# unsharded solve, and the reference's Bloom + MMW values for petersen ..
+# queen6_6 equal EXPECTED_FLAGS' too (its per-shard filters live for a
+# rung and still changed none of them), so only queen7_7 is written out:
+# with 4x the aggregate capacity it overflows later and expands more.
+SHARDS = 4
+EXPECTED_SHARDS = {
+    "defaults": {
+        **{name: EXPECTED[name] for name in MAIN_PATH[:4]},
+        "queen7_7": dict(
+            width=35, exact=False, lb=18, ub=37, expanded=2574272,
+            block="queen7_7_red[49]_red",
+            per_k=[(18, False, False, 497), (19, False, False, 497),
+                   (20, False, False, 4353), (21, False, False, 4353),
+                   (22, False, False, 7096), (23, False, False, 7096),
+                   (24, False, False, 7529), (25, False, False, 7529),
+                   (26, False, False, 14072), (27, False, False, 42829),
+                   (28, False, False, 51864), (29, False, False, 84226),
+                   (30, False, False, 107336), (31, False, False, 164283),
+                   (32, False, False, 233457), (33, False, True, 359451),
+                   (34, False, True, 552113), (35, True, True, 925691)]),
+    },
+    "bloom+mmw": {
+        **{name: EXPECTED_FLAGS["bloom+mmw"][name] for name in MAIN_PATH[:4]},
+        "queen7_7": dict(
+            width=35, exact=False, lb=18, ub=37, expanded=2358861,
+            block="queen7_7_red[49]_red",
+            per_k=[(18, False, False, 1), (19, False, False, 1),
+                   (20, False, False, 37), (21, False, False, 290),
+                   (22, False, False, 511), (23, False, False, 690),
+                   (24, False, False, 2545), (25, False, False, 4252),
+                   (26, False, False, 8337), (27, False, False, 19713),
+                   (28, False, False, 34420), (29, False, False, 59316),
+                   (30, False, False, 87478), (31, False, False, 142828),
+                   (32, False, False, 213130), (33, False, False, 342241),
+                   (34, False, True, 536311), (35, True, True, 906760)]),
+    },
+}
+# one forced-donation solve (every skewed level rebalanced; the defaults'
+# values) and one sharded reconstruction (petersen's winning rung, k=4
+# below its ub, replayed on the host engine)
+DONATE = ("queen6_6", 1.0)
+SHARD_RECONSTRUCT = ("petersen", 2)
+# the rung that the shard phase traces (queen7_7's largest, at SHARDS)
+SHARD_PROFILE = ("queen7_7", 35)
+# ``solve(g, heuristics=HEURISTICS)`` (seed 0), from
+# ``repro.core.solver.solve`` on the CPU: 8 rounds close petersen's ladder
+# at its lower bound and lower queen7_7's ub to 36; the other three keep
+# EXPECTED's values
+HEURISTICS = 8
+EXPECTED_HEUR = {
+    **EXPECTED,
+    "petersen": dict(
+        width=4, exact=True, lb=3, ub=4, expanded=40,
+        block="PetersenGraph_red[10]_red", per_k=[(3, False, False, 40)]),
+    "queen7_7": dict(EXPECTED["queen7_7"], ub=36),
+}
+# ``repro.core.bounds_engine.ub_orders_async`` over every REGISTRY graph
+# with each of UB_SEEDS (30 graphs padded to n=112), on the CPU: name ->
+# the width for each seed
+UB_SEEDS = (1, 2)
+EXPECTED_UB = {
+    "mcgee": (8, 7), "dyck": (9, 9), "petersen": (4, 5), "desargues": (6, 6),
+    "myciel3": (5, 5), "myciel4": (11, 11), "myciel5": (20, 20),
+    "queen5_5": (19, 18), "queen6_6": (26, 27), "queen7_7": (37, 38),
+    "queen8_8": (50, 51), "kneser8_3": (34, 32), "8x6_torusGrid": (15, 15),
+    "grid6x6": (7, 6), "ba_100_2": (11, 11)}
 # lane counts and shapes of the lane kernels' checks
 LANE_L = (1, 3, 8)
 LANE_N = (17, 33, 49, 100)
@@ -618,6 +705,50 @@ def check_bloom_lanes(torch, np, kern):
     return worst
 
 
+def check_shard_forms(torch, np, bitset, graph, kern):
+    """The lane forms as the sharded engine drives them: SHARDS lanes that
+    share one adjacency, allowed mask and k (lane-strided states, ragged
+    valid rows), and SHARDS filters of 2^24 bits taking a shard's whole
+    level (2^17 rows each, the per-shard cap), carried across two
+    levels."""
+    worst = {"wavefront_lanes": 0, "bloom_lanes": 0}
+    n, b = 49, 2048
+    adj, states, valid, k, allowed = lane_inputs(
+        torch, np, bitset, graph, n, b, SHARDS, seed=4949, strided=True)
+    args = (adj[:1].expand(SHARDS, -1, -1).contiguous(), states, valid,
+            k[:1].expand(SHARDS).contiguous(),
+            allowed[:1].expand(SHARDS, -1).contiguous())
+    for use_mmw, use_simp in WAVEFRONT_FLAGS:
+        flags = dict(use_mmw=use_mmw, use_simplicial=use_simp)
+        ok, err = same(torch, kern["wavefront"].wavefront_expand(
+            *args, n=n, **flags), kern["wavefront"].wavefront_ref(
+            *args, n=n, **flags))
+        worst["wavefront_lanes"] = max(worst["wavefront_lanes"], err)
+        check(ok, f"shard-form wavefront kernel != plain version, flags "
+                  f"{flag_name(use_mmw, use_simp)} (max abs err {err})")
+    bl = kern["bloom"]
+    rows = 1 << 17
+    filt = bl.make_filter_words(M_BITS, device=DEVICE, lanes=SHARDS)
+    for level in range(2):
+        batches = [bloom_batch(torch, np, rows, 2, seed=17 * level + i)
+                   for i in range(SHARDS)]
+        states = torch.stack([x[0] for x in batches])
+        valid = torch.stack([x[1] for x in batches])
+        want = bl.bloom_insert_ref(filt.clone(), states, valid,
+                                   m_bits=M_BITS, k_hashes=K_HASHES)
+        got = bl.bloom_insert(filt, states, valid, m_bits=M_BITS,
+                              k_hashes=K_HASHES)
+        ok, err = same(torch, got, want)
+        worst["bloom_lanes"] = max(worst["bloom_lanes"], err)
+        check(ok, f"shard-form bloom kernel != plain version at level "
+                  f"{level} (max abs err {err})")
+    log(f"kernels: shard forms bit-identical to the plain versions: "
+        f"wavefront with {SHARDS} lanes sharing adj, allowed and k (n={n}, "
+        f"B={b}, every flag set), bloom with {SHARDS} x {rows} rows into "
+        f"{SHARDS} 2^24-bit filters over two levels")
+    return worst
+
+
 def phase_kernels(torch, np, bitset, graph, components, kern):
     return {"wavefront": check_wavefront(torch, np, bitset, graph,
                                          kern["wavefront"]),
@@ -628,7 +759,8 @@ def phase_kernels(torch, np, bitset, graph, components, kern):
                                    kern["expand"]),
             "wavefront_lanes": check_wavefront_lanes(
                 torch, np, bitset, graph, kern["wavefront"]),
-            "bloom_lanes": check_bloom_lanes(torch, np, kern["bloom"])}
+            "bloom_lanes": check_bloom_lanes(torch, np, kern["bloom"]),
+            "shard_forms": check_shard_forms(torch, np, bitset, graph, kern)}
 
 
 def reset_counts(ops):
@@ -636,6 +768,14 @@ def reset_counts(ops):
         mod.LAUNCHES = 0
     ops["wavefront"].LAUNCHES_BY_B.clear()
     ops["wavefront"].LAUNCHES_BY_LANES.clear()
+    ops["bloom"].LAUNCHES_BY_LANES.clear()
+
+
+def by_lanes_of(ops):
+    """Launches of the wavefront kernel and calls of the Bloom kernel by
+    lane count."""
+    return {name: dict(sorted(ops[name].LAUNCHES_BY_LANES.items()))
+            for name in ("wavefront", "bloom")}
 
 
 def widths(ops):
@@ -771,6 +911,225 @@ def phase_lanes(torch, graph, solver, batch, golden, ops):
             f"sequential solve loop {walls[f'sequential {config}']:.3f} s "
             f"({len(SUITE)} instances)")
     return counts, by_lanes, walls
+
+
+SHARD_COUNTERS = ("shard_donations", "shard_donated_rows", "shard_idle_steps")
+
+
+def shard_stats(tr):
+    snap = tr.snapshot()
+    out = {k: snap["counters"].get(k, 0) for k in SHARD_COUNTERS}
+    out["shard_peak_occupancy"] = snap.get("gauges", {}).get(
+        "shard_peak_occupancy", 0)
+    return out
+
+
+def phase_shards(torch, graph, solver, telemetry, golden, ops, walls):
+    """The shard paths, each with its launch counts set to 0 just before it
+    and read just after: ``solve(g, shards=SHARDS)`` over MAIN_PATH under
+    each of LANE_CONFIGS (every wavefront launch and Bloom call must cover
+    all SHARDS shards), a forced-donation solve and a sharded
+    reconstruction.  Returns path -> counts, path -> launches by lane
+    count, path -> shard counters, and the walls beside phase 3's."""
+    counts, by_lanes, stats, shard_walls = {}, {}, {}, {}
+    for config, kw in LANE_CONFIGS.items():
+        needed = PATHS[config][2]
+        path = f"shards={SHARDS} {config}"
+        tr = telemetry.Tracker()
+        reset_counts(ops)
+        for name in MAIN_PATH:
+            t0 = time.perf_counter()
+            res = solver.solve(graph.REGISTRY[name](), shards=SHARDS,
+                               tracker=tr, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            shard_walls[f"{config} {name}"] = (walls[(config, name)], wall)
+            check_solve(res, f"{path} {name}", EXPECTED_SHARDS[config][name],
+                        golden)
+            log(f"solve [{path}] {name}: treewidth={res.width} "
+                f"exact={res.exact} expanded={res.expanded} wall={wall:.3f} "
+                f"s (shards=1: {walls[(config, name)]:.3f} s)")
+        counts[path] = read_counts(ops)
+        by_lanes[path] = by_lanes_of(ops)
+        stats[path] = shard_stats(tr)
+        for kernel in needed:
+            check(counts[path][kernel] > 0,
+                  f"path [{path}]: the {kernel} kernel never launched")
+            check(set(by_lanes[path][kernel]) == {SHARDS},
+                  f"path [{path}]: {kernel} launches by lane count "
+                  f"{by_lanes[path][kernel]}, not all of {SHARDS} shards")
+        log(f"path [{path}]: launches {counts[path]}; by lane count "
+            f"{by_lanes[path]}; shard counters {stats[path]}")
+
+    name, ratio = DONATE
+    path = f"shards={SHARDS} donate_ratio={ratio} {name}"
+    tr = telemetry.Tracker()
+    reset_counts(ops)
+    res = solver.solve(graph.REGISTRY[name](), shards=SHARDS,
+                       donate_ratio=ratio, tracker=tr)
+    check_solve(res, path, EXPECTED[name], golden)
+    counts[path], by_lanes[path] = read_counts(ops), by_lanes_of(ops)
+    stats[path] = shard_stats(tr)
+    check(stats[path]["shard_donations"] > 0
+          and stats[path]["shard_donated_rows"] > 0,
+          f"path [{path}]: no donation fired ({stats[path]})")
+    log(f"path [{path}]: treewidth={res.width} expanded={res.expanded}; "
+        f"launches {counts[path]}; shard counters {stats[path]}")
+
+    name, s = SHARD_RECONSTRUCT
+    path = f"shards={s} reconstruct {name}"
+    reset_counts(ops)
+    g = graph.REGISTRY[name]()
+    res = solver.solve(g, shards=s, reconstruct=True)
+    check_solve(res, path, EXPECTED[name], golden)
+    check(res.order is not None, f"{path}: the stitched order was rejected")
+    replay = solver.order_width(g, res.order)
+    check(replay <= res.width, f"{path}: order replays at {replay}, width "
+                               f"{res.width}")
+    counts[path], by_lanes[path] = read_counts(ops), by_lanes_of(ops)
+    check(by_lanes[path]["wavefront"].get(s, 0) > 0
+          and by_lanes[path]["wavefront"].get(1, 0) > 0,
+          f"path [{path}]: wavefront launches by lane count "
+          f"{by_lanes[path]['wavefront']}: no launch of {s} shards, or no "
+          f"replay on the host engine")
+    log(f"path [{path}]: width={res.width} order verified (replays at "
+        f"{replay}); launches {counts[path]}; by lane count "
+        f"{by_lanes[path]}")
+    return counts, by_lanes, stats, shard_walls
+
+
+def phase_shard_split(torch, graph, preprocess, solver, shard, dedup):
+    """One sharded rung (SHARD_PROFILE at SHARDS shards, defaults) under
+    torch.profiler, with the routing (``shard.route_states``) and the
+    owner dedup (``dedup.dedup_compact``) in ranges of their own: the
+    device time of each against the device time of the whole rung.  Then
+    the routing of the rung's largest level alone, by CUDA-graph
+    replay."""
+    name, k = SHARD_PROFILE
+    g = preprocess.preprocess(graph.REGISTRY[name]()).blocks[0].g
+    plan = solver.plan_block(g, use_clique=True, use_paths=True,
+                             start_k=None)
+    route, own = shard.route_states, dedup.dedup_compact
+    calls = []
+
+    def traced_route(rows, valid, *a):
+        calls.append((rows, valid) + a)
+        with torch.profiler.record_function("shard.route_states"):
+            return route(rows, valid, *a)
+
+    def traced_own(*a):
+        with torch.profiler.record_function("shard.owner_dedup"):
+            return own(*a)
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    shard.route_states, dedup.dedup_compact = traced_route, traced_own
+    try:
+        t0 = time.perf_counter()
+        with torch.profiler.profile(activities=acts) as prof:
+            res = shard.decide_sharded(plan.graph_at(k), k, plan.clique,
+                                       shards=SHARDS, cap=1 << 17,
+                                       block=2048)
+            torch.cuda.synchronize()
+        traced_s = time.perf_counter() - t0
+    finally:
+        shard.route_states, dedup.dedup_compact = route, own
+    check(res.feasible, f"shard split: {name} k={k} must be feasible")
+    # device busy: every kernel, copy and memset (not the ranges' own
+    # spans on the device timeline); a range's device time: the kernels
+    # launched inside it, summed on its host-side event
+    keys = ("shard.route_states", "shard.owner_dedup")
+    device_us, ranges, by_kernel = 0.0, dict.fromkeys(keys, 0.0), {}
+    for evt in prof.events():
+        on_device = str(getattr(evt, "device_type", "")).endswith("CUDA")
+        if on_device and not getattr(evt, "is_user_annotation", False) \
+                and evt.name not in keys:
+            us = float(evt.self_device_time_total)
+            device_us += us
+            by_kernel[evt.name] = by_kernel.get(evt.name, 0.0) + us
+        elif not on_device and evt.name in keys:
+            ranges[evt.name] += float(evt.device_time_total)
+    port_us = sum(us for key, us in by_kernel.items()
+                  if any(k in key for k in PORT_KERNEL_NAMES))
+    shares = {key: (f"{us / 1e3:.3f} ms, {100 * us / device_us:.1f}%"
+                    if device_us and us else "not measured")
+              for key, us in ranges.items()}
+    peak = max(calls, key=lambda c: int(c[1].sum()))
+    route_ms = device_ms(torch, lambda: route(*peak), calls=10)
+    log(f"shard split {name} k={k} [{SHARDS} shards, defaults]: "
+        f"{len(calls)} levels, expanded={res.expanded}, traced wall "
+        f"{traced_s:.3f} s, device busy {device_us / 1e3:.3f} ms; device "
+        f"time of the routing {shares.get('shard.route_states')}, of the "
+        f"owner dedup {shares.get('shard.owner_dedup')}, of the port's "
+        f"kernels {port_us / 1e3:.3f} ms; routing of the largest level "
+        f"({int(peak[1].sum())} of {peak[0].shape[0]} rows valid) "
+        f"{route_ms:.4f} ms by CUDA-graph replay")
+    for key, us in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"  device {us / 1e3:9.3f} ms  {key[:90]}")
+
+
+def phase_heuristics(torch, np, graph, solver, bounds_engine, telemetry,
+                     golden, ops, walls):
+    """``solve(g, heuristics=HEURISTICS)`` over MAIN_PATH (launch counts
+    set to 0 just before, read just after), then ``ub_orders_async`` on
+    the card over every REGISTRY graph with each of UB_SEEDS: widths as
+    the reference's, orders that replay to them; the sweep timed per
+    dispatch.  Returns the path's launch counts."""
+    path = f"heuristics={HEURISTICS}"
+    reset_counts(ops)
+    for name in MAIN_PATH:
+        t0 = time.perf_counter()
+        res = solver.solve(graph.REGISTRY[name](), heuristics=HEURISTICS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check_solve(res, f"{path} {name}", EXPECTED_HEUR[name], golden)
+        log(f"solve [{path}] {name}: treewidth={res.width} "
+            f"exact={res.exact} lb={res.lb} ub={res.ub} "
+            f"expanded={res.expanded} wall={wall:.3f} s (defaults: "
+            f"{walls[('defaults', name)]:.3f} s)")
+    counts = read_counts(ops)
+    check(counts["wavefront"] > 0,
+          f"path [{path}]: the wavefront kernel never launched")
+    log(f"path [{path}]: launches {counts}")
+
+    pool = [(name, i) for name in EXPECTED_UB for i in range(len(UB_SEEDS))]
+    gs = [graph.REGISTRY[name]() for name, _ in pool]
+    seeds = [UB_SEEDS[i] for _, i in pool]
+    tr = telemetry.Tracker()
+    bounds_engine.LAUNCHES = 0
+    out = bounds_engine.ub_orders_async(gs, seeds, tracker=tr).result()
+    launches = bounds_engine.LAUNCHES
+    check(launches == 1 and tr.snapshot()["counters"]["heur_lanes"]
+          == len(pool), f"ub_orders_async: {launches} sweeps, counters "
+                        f"{tr.snapshot()['counters']}")
+    for (name, i), g, (w, order) in zip(pool, gs, out):
+        check(w == EXPECTED_UB[name][i],
+              f"ub_orders_async {name} seed {UB_SEEDS[i]}: width {w} != "
+              f"JAX {EXPECTED_UB[name][i]}")
+        check(sorted(order) == list(range(g.n))
+              and solver.order_width(g, order) == w,
+              f"ub_orders_async {name} seed {UB_SEEDS[i]}: the order does "
+              f"not replay to width {w}")
+    adjs, ranks = bounds_engine.pool_inputs(gs, seeds)
+    adj_d = torch.from_numpy(adjs).to(DEVICE)
+    rank_d = torch.from_numpy(ranks).to(DEVICE)
+    b, n = ranks.shape
+    dev = device_ms(torch, lambda: bounds_engine.min_degree_sweep(adj_d,
+                                                                 rank_d),
+                    calls=5)
+    ms = cuda_time_ms(torch, lambda: bounds_engine.ub_orders_async(
+        gs, seeds).result(), iters=10)
+    # each step reads the n x n adjacency of every graph for the degrees
+    # and updates it once: 2 B n^3 one-byte operations; inputs and
+    # outputs once
+    bms, by = bound(adjs.nbytes + ranks.nbytes + 4 * b * (n + 1),
+                    2 * b * n ** 3)
+    log(f"ub_orders_async on the card: {len(pool)} graphs padded to n={n}, "
+        f"widths as the JAX package's, orders replay; {launches} sweep per "
+        f"dispatch; sweep device {dev:.4f} ms by CUDA-graph replay, "
+        f"dispatch {ms:.4f} ms by CUDA events (host packing, {n} steps, "
+        f"the copy back), bound {bms:.6f} ms by {by}")
+    return counts
 
 
 def timing_inputs(torch, np, bitset, graph, preprocess, solver, batch,
@@ -1189,8 +1548,9 @@ def main(argv=None):
         return 1
     sys.path.insert(0, str(pathlib.Path(args.src).resolve()))
     import numpy as np
-    from repro_torch.core import (batch, bitset, bloom, components, dedup,
-                                  graph, preprocess, solver)
+    from repro_torch.core import (batch, bitset, bloom, bounds_engine,
+                                  components, dedup, graph, preprocess,
+                                  shard, solver, telemetry)
     from repro_torch.kernels import bloom as bloom_kern
     from repro_torch.kernels import build
     from repro_torch.kernels import expand as expand_kern
@@ -1232,12 +1592,29 @@ def main(argv=None):
     lane_counts, by_lanes, suite_walls = phase_lanes(torch, graph, solver,
                                                      batch, golden, ops)
     log(f"phase 6 (lane paths) in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    shard_counts, shard_lanes, shard_stats_, shard_walls = phase_shards(
+        torch, graph, solver, telemetry, golden, ops, walls)
+    phase_shard_split(torch, graph, preprocess, solver, shard, dedup)
+    log(f"phase 7 (shard paths) in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    heur_counts = phase_heuristics(
+        torch, np, graph, solver, bounds_engine, telemetry, golden, ops,
+        walls)
+    log(f"phase 8 (heuristics) in {time.perf_counter() - t0:.1f} s")
+    worst["wavefront_lanes"] = max(worst["wavefront_lanes"],
+                                   worst["shard_forms"]["wavefront_lanes"])
+    worst["bloom_lanes"] = max(worst["bloom_lanes"],
+                               worst["shard_forms"]["bloom_lanes"])
+    # a lane row counts its kernel's launches on the lane and shard paths,
+    # a single-lane row those on phase 3's paths and the heuristics path
+    single = {**counts, f"heuristics={HEURISTICS}": heur_counts}
+    multi = {**lane_counts, **shard_counts}
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         main_shape = times[name][0]
-        # a lane row counts its kernel's launches on the lane paths
-        base, paths = (name[:-len("_lanes")], lane_counts) \
-            if name.endswith("_lanes") else (name, counts)
+        base, paths = (name[:-len("_lanes")], multi) \
+            if name.endswith("_lanes") else (name, single)
         entry = dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=sum(c[base] for c in paths.values()),
@@ -1247,9 +1624,15 @@ def main(argv=None):
             wrapper_ms=main_shape["wrapper_ms"])
         if name == "wavefront":
             entry["launches_by_width"] = by_width
+        if name.endswith("_lanes"):
+            entry["launches_by_path"] = {p: c[base] for p, c in paths.items()}
+            entry["shard_launches_by_lanes"] = {
+                p: lanes[base] for p, lanes in shard_lanes.items()}
         if name == "wavefront_lanes":
             entry["launches_by_lanes"] = by_lanes
             entry["suite_walls_s"] = suite_walls
+            entry["shard_walls_s"] = shard_walls
+            entry["shard_counters"] = shard_stats_
         if name.startswith("wavefront"):
             entry["variants"] = [v for v in times[name][1:]
                                  if v["shape"] == main_shape["shape"]]

@@ -25,7 +25,8 @@ Capability table:
                                      int32 words
 
 ``wavefront_expand``, ``sort_dedup`` and ``bloom_query_insert`` also take
-a leading lane axis (the multi-lane engine, ``core.batch``): states
+a leading lane axis (the multi-lane engine, ``core.batch``, whose lanes
+are also the sharded engine's shards, ``core.shard``): states
 ``(L, B, W)`` with per-lane adjacency, allowed mask and an ``(L,)`` int32
 ``k`` tensor; rows ``(L, M, W)`` sorted lane by lane; one filter per lane
 (``bloom_make_filter(..., lanes=L)``).  Under ``cuda`` each is one
@@ -47,7 +48,8 @@ BACKENDS: Tuple[str, ...] = ("torch", "cuda")
 
 DEDUP_MODES: Tuple[str, ...] = ("sort", "bloom")
 
-# backends whose ops take the multi-lane engine's leading lane axis
+# backends whose ops take the leading lane axis of the multi-lane and the
+# sharded engines
 BATCHED_BACKENDS: Tuple[str, ...] = ("torch", "cuda")
 
 # closure schedules ported so far (the reference's jax backend also has
@@ -121,7 +123,7 @@ def default_backend(device: torch.device) -> str:
 def validate(backend: str, *, mode: str = "sort",
              schedule: str = "doubling", use_mmw: bool = False,
              use_simplicial: bool = False, m_bits: Optional[int] = None,
-             lanes: int = 1, shards: int = 1, heuristics: int = 0,
+             lanes: int = 1, shards: int = 1,
              device: Optional[torch.device] = None) -> None:
     """Fail fast on configurations the port cannot run (yet)."""
     if backend not in BACKENDS:
@@ -145,14 +147,14 @@ def validate(backend: str, *, mode: str = "sort",
             f"backend {backend!r} does not support the multi-lane engine "
             f"(batched backends: {', '.join(BATCHED_BACKENDS)}); run with "
             "lanes=1 or switch backend.")
-    if shards != 1:
+    if shards < 1:
         raise BackendCapabilityError(
-            f"shards={shards}: the sharded engine is not ported "
-            "(ROADMAP A10); run with shards=1")
-    if heuristics:
+            f"shards must be >= 1 (got {shards})")
+    if shards > 1 and backend not in BATCHED_BACKENDS:
         raise BackendCapabilityError(
-            f"heuristics={heuristics}: the anytime bounds engine is not "
-            "ported (ROADMAP A9); run with heuristics=0")
+            f"backend {backend!r} does not support the sharded engine "
+            f"(batched backends: {', '.join(BATCHED_BACKENDS)}); run with "
+            "shards=1 or switch backend.")
     if mode == "bloom" and backend == "cuda" \
             and m_bits is not None and m_bits % 32:
         raise BackendCapabilityError(

@@ -17,6 +17,10 @@ Every function also takes a leading lane axis (rows ``(L, M, W)``, masks
 (the lane is the most significant key, and the sentinel sorts last within
 its lane), and ``compact`` appends each lane at its own offset into its
 own ``(cap, W)`` buffer with its own drop count.
+
+``sort_perm(keys, major)`` is the same sort with one more key above the
+words: the sharded engine's routing sort on (owner, words)
+(``core.shard.route_states``).
 """
 from __future__ import annotations
 
@@ -27,18 +31,30 @@ from .bitset import MASK32
 SENTINEL = -1          # 0xFFFFFFFF as an int32 bit pattern
 
 
+def sort_perm(keys: torch.Tensor, major: torch.Tensor = None):
+    """The stable permutation that sorts rows of ([L,] M, W) in unsigned
+    lexicographic order, per lane.  ``major`` ([L,] M) of small
+    non-negative ints, when given, is the most significant key: it rides
+    in the high half of word 0's int64 key, so it costs no extra pass."""
+    w = keys.shape[-1]
+    perm = torch.arange(keys.shape[-2], device=keys.device).expand(
+        keys.shape[:-1])
+    for j in range(w - 1, -1, -1):
+        col = torch.gather(keys[..., j], -1, perm).to(torch.int64) & MASK32
+        if j == 0 and major is not None:
+            col = col | (torch.gather(major, -1, perm).to(torch.int64)
+                         << 32)
+        perm = torch.gather(perm, -1,
+                            torch.sort(col, dim=-1, stable=True).indices)
+    return perm
+
+
 def sort_states(keys: torch.Tensor, valid: torch.Tensor):
     """Lexicographically sort rows of ([L,] M, W) with invalid rows sent to
     the end of their lane.  Returns (sorted_keys, sorted_valid)."""
-    w = keys.shape[-1]
     keys = torch.where(valid[..., None], keys,
                        torch.full_like(keys, SENTINEL))
-    perm = torch.arange(keys.shape[-2], device=keys.device).expand(
-        valid.shape)
-    for j in range(w - 1, -1, -1):
-        col = torch.gather(keys[..., j], -1, perm).to(torch.int64) & MASK32
-        perm = torch.gather(perm, -1,
-                            torch.sort(col, dim=-1, stable=True).indices)
+    perm = sort_perm(keys)
     rows = torch.gather(keys, -2, perm[..., None].expand(keys.shape))
     return rows, torch.gather(valid, -1, perm)
 

@@ -29,6 +29,11 @@ order are those of its own narrow chunk.  A lane that has finished (its
 target reached or its frontier empty) keeps its frontier as it was and
 leaves the kernels' grids.
 
+``shard_sweep`` is the sharded engine's local step (``core.shard``): every
+shard's rows in full ``block``-row chunks, the shards as the kernels' lane
+axis, with no narrow branch and no cross-chunk dedup, as the reference
+sweeps its shards.
+
 ``mode="bloom"`` is the paper's dedup: each level gets a fresh filter per
 lane (``bloom_make_filter``), every chunk's sorted-unique children are
 queried and inserted (``bloom_query_insert``) before they are appended,
@@ -219,6 +224,40 @@ def _level_step(adj, allowed, k, fr, counts, live, *, n, cap, block,
     all_dropped = torch.zeros((nl,), dtype=torch.int64, device=device)
     all_dropped[sel] = dropped
     return new, all_dropped
+
+
+def shard_sweep(adj, allowed, k, states, count, counts, *, n, cap, block,
+                use_mmw, schedule, backend, use_simplicial):
+    """Expand every shard's rows in ``block``-row chunks: the sharded
+    engine's local step (``core.shard``), the reference's
+    ``chunk_sweep(..., mode="sort", max_chunks=cap // block,
+    cross_dedup=False)`` under ``vmap``.
+
+    Every chunk is a full ``block`` wide (no ``SMALL_BLOCK`` branch),
+    children are deduped within their chunk only, and nothing dedups
+    across chunks: that happens at the owner after routing.  Chunk j of
+    every shard goes through one ``wavefront_expand`` (the shards are its
+    lane axis) and one sort; a shard with fewer chunks rides with invalid
+    rows.  adj (S, n, W), allowed (S, W), k (S,) int32, states (S, cap,
+    W), ``count`` the (S,) device counts and ``counts`` the same on the
+    host.  Returns (out (S, cap, W), ocount (S,), dropped (S,)), the
+    counts as int64 device tensors."""
+    s, _, w = states.shape
+    device = states.device
+    count_dev = count.to(torch.int64)
+    out = new_out(cap, w, device, lanes=s)
+    ocount = torch.zeros((s,), dtype=torch.int64, device=device)
+    dropped = torch.zeros((s,), dtype=torch.int64, device=device)
+    rows = torch.arange(block, dtype=torch.int64, device=device)
+    for c in range(-(-max(counts) // block)):
+        lo = c * block
+        out, ocount, dropped, _ = expand_chunk(
+            adj, states[:, lo:lo + block],
+            (rows + lo)[None] < count_dev[:, None], k, out, ocount,
+            dropped, None, allowed, n=n, cap=cap, block=block, mode="sort",
+            use_mmw=use_mmw, m_bits=1, k_hashes=1, schedule=schedule,
+            backend=backend, use_simplicial=use_simplicial)
+    return out[:, :cap], ocount, dropped
 
 
 def decide_loop(adj, allowed, k, targets, fr, *, n, cap, block, mode,

@@ -13,6 +13,8 @@ and the port's frontier comes back in the reference's layout.
 A lane-batched frontier (``lane_frontiers``) is the same dataclass with a
 leading lane axis on every field: states ``(L, cap, W)``, count and
 dropped ``(L,)``.  The multi-lane engine (``core.batch``) carries one.
+A sharded frontier (``shard_frontiers``) has the same layout with one
+search spread over the shards (``core.shard``).
 """
 from __future__ import annotations
 
@@ -67,6 +69,19 @@ def lane_frontiers(lanes: int, cap: int, w: int, device) -> Frontier:
                     count=torch.ones((lanes,), dtype=torch.int32,
                                      device=device),
                     dropped=torch.zeros((lanes,), dtype=torch.int32,
+                                        device=device))
+
+
+def shard_frontiers(shards: int, cap: int, w: int, device) -> Frontier:
+    """One instance's DP root split across ``shards`` frontier shards
+    (``core.shard``): the single ``{∅}`` root lives in shard 0.  States
+    ``(S, cap, W)``, count and dropped ``(S,)``."""
+    count = torch.zeros((shards,), dtype=torch.int32, device=device)
+    count[0] = 1
+    return Frontier(states=torch.zeros((shards, cap, w), dtype=torch.int32,
+                                       device=device),
+                    count=count,
+                    dropped=torch.zeros((shards,), dtype=torch.int32,
                                         device=device))
 
 

@@ -33,10 +33,12 @@ import torch
 
 from . import backend as backend_lib
 from . import batch as batch_lib
-from . import bitset, bloom, bounds, dedup, engine as engine_lib
+from . import bitset, bloom, bounds, bounds_engine, dedup
+from . import engine as engine_lib
 from . import frontier as frontier_lib
 from . import expand
 from . import preprocess as preprocess_lib
+from . import shard as shard_lib
 from . import telemetry
 from .graph import Graph
 
@@ -282,12 +284,17 @@ class BlockPlan:
 
 
 def plan_block(g: Graph, *, use_clique: bool, use_paths: bool,
-               start_k: Optional[int], seed: int = 0) -> BlockPlan:
-    """Bounds + deepening schedule for one block (the reference's with
-    ``heuristics=0``: the anytime bounds engine is not ported).
+               start_k: Optional[int], heuristics: int = 0,
+               seed: int = 0) -> BlockPlan:
+    """Bounds + deepening schedule for one block.
 
     ``start_k`` moves the ladder's starting rung but never the reported
-    lower bound; a start above it is flagged ``forced``."""
+    lower bound; a start above it is flagged ``forced``.
+    ``heuristics > 0`` runs that many anytime improver rounds
+    (``core.bounds_engine``) first: a tighter lb raises ``k0`` (not
+    ``forced``: the skipped rungs are refuted by a minor), a tighter ub
+    shortens the ladder with its order.  ``seed`` pins every heuristic,
+    so the plan is a pure function of ``(g, knobs)``."""
     if g.n <= 1:
         return BlockPlan(g, [], 0, 0, list(range(g.n)), None, 0, False,
                          SolveResult(0, True, 0, 0, 0, 0.0,
@@ -295,6 +302,11 @@ def plan_block(g: Graph, *, use_clique: bool, use_paths: bool,
     clique = bounds.greedy_max_clique(g, seed=seed) if use_clique else []
     lb = max(bounds.lower_bound(g, seed=seed), len(clique) - 1)
     ub, ub_order = bounds.upper_bound(g, seed=seed)
+    if heuristics:
+        imp = bounds_engine.improve(g, lb, ub, ub_order,
+                                    rounds=int(heuristics), seed=seed)
+        lb, ub = imp.lb, imp.ub
+        ub_order = imp.ub_order if imp.ub_order is not None else ub_order
     if lb >= ub:
         return BlockPlan(g, clique, lb, ub, ub_order, None, lb, False,
                          SolveResult(ub, True, lb, ub, 0, 0.0, ub_order, {}))
@@ -321,8 +333,9 @@ def solve_block(g: Graph, *, cap: Optional[int], block: int, mode: str,
                 m_bits: int = engine_lib.DEFAULT_M_BITS,
                 k_hashes: int = bloom.DEFAULT_K,
                 use_simplicial: bool = False, engine: str = "fused",
-                lanes: int = 1, seed: int = 0, tracker=None,
-                device=None) -> SolveResult:
+                lanes: int = 1, shards: int = 1,
+                donate_ratio: Optional[float] = None, heuristics: int = 0,
+                seed: int = 0, tracker=None, device=None) -> SolveResult:
     """Iterative deepening on one (biconnected) block.
 
     ``cap=None`` right-sizes the frontier buffer with
@@ -334,20 +347,30 @@ def solve_block(g: Graph, *, cap: Optional[int], block: int, mode: str,
     smallest feasible rung wins.  Rungs above it are dropped uncounted,
     so widths, exactness, ``expanded`` and ``per_k`` are those of
     ``lanes=1``.  ``engine="host"`` and ``reconstruct=True`` need the
-    single-lane loop and run sequential rungs."""
+    single-lane loop and run sequential rungs.
+
+    ``shards > 1`` decides each rung with the frontier split across S
+    shards (``core.shard``), with S times the aggregate capacity.  It
+    needs the fused engine (``engine="host"`` falls back to one shard)
+    and forces ``lanes=1``; ``reconstruct=True`` replays the winning rung
+    on the host engine, not counted in ``expanded``.  ``shards=1`` is the
+    unsharded path exactly."""
     t0 = time.time()
     tr = telemetry.get(tracker)
     plan = plan_block(g, use_clique=use_clique, use_paths=use_paths,
-                      start_k=start_k, seed=seed)
+                      start_k=start_k, heuristics=heuristics, seed=seed)
     if plan.result is not None:
         return dataclasses.replace(plan.result, time_sec=time.time() - t0)
     if cap is None:
         cap = batch_lib.plan_capacity(g.n, block=block)
     tr.gauge("frontier_cap", cap)
 
+    shard_n = max(1, int(shards))
+    if shard_n > 1 and engine != "fused":
+        shard_n = 1       # the host loop is single-frontier only
     spec = max(1, int(lanes))
-    if spec > 1 and (reconstruct or engine != "fused"):
-        spec = 1          # snapshots and the host loop are single-lane only
+    if spec > 1 and (reconstruct or engine != "fused" or shard_n > 1):
+        spec = 1          # snapshots, the host loop and shards: one lane
     decide_kw = dict(cap=cap, block=block, mode=mode, use_mmw=use_mmw,
                      m_bits=m_bits, k_hashes=k_hashes, schedule=schedule,
                      backend=backend, use_simplicial=use_simplicial,
@@ -358,7 +381,12 @@ def solve_block(g: Graph, *, cap: Optional[int], block: int, mode: str,
     k = plan.k0
     while k < plan.ub:
         ks = list(range(k, min(k + spec, plan.ub)))
-        if spec > 1:
+        if shard_n > 1:
+            with tr.time_block("rung_s"):
+                results = [shard_lib.decide_sharded(
+                    plan.graph_at(k), k, plan.clique, shards=shard_n,
+                    donate_ratio=donate_ratio, tracker=tr, **decide_kw)]
+        elif spec > 1:
             with tr.time_block("rung_s"):
                 results = batch_lib.decide_batch(
                     g, ks, plan.clique,
@@ -383,8 +411,15 @@ def solve_block(g: Graph, *, cap: Optional[int], block: int, mode: str,
             if res.feasible:
                 order = None
                 if reconstruct:
+                    levels = getattr(res, "levels", None)
+                    if levels is None:
+                        # a sharded rung: replay it on the host engine for
+                        # level snapshots, not counted in ``expanded``
+                        levels = decide(plan.graph_at(kk), kk, plan.clique,
+                                        keep_levels=True, engine="host",
+                                        tracker=tr, **decide_kw).levels
                     order = reconstruct_order(plan.graph_at(kk), kk,
-                                              plan.clique, res.levels)
+                                              plan.clique, levels)
                 return SolveResult(kk, plan.exact_at(kk, any_inexact),
                                    plan.lb, plan.ub, expanded_total,
                                    time.time() - t0, order, per_k)
@@ -441,7 +476,8 @@ def solve(g: Graph, *, cap: Optional[int] = None, block: int = 1 << 11,
           reconstruct: bool = False, start_k: Optional[int] = None,
           verbose: bool = False, backend: Optional[str] = None,
           use_simplicial: bool = False, engine: str = "fused",
-          lanes: int = 1, shards: int = 1, heuristics: int = 0,
+          lanes: int = 1, shards: int = 1,
+          donate_ratio: Optional[float] = None, heuristics: int = 0,
           seed: int = 0, tracker=None, device=None) -> SolveResult:
     """Compute the treewidth of ``g``.
 
@@ -457,9 +493,12 @@ def solve(g: Graph, *, cap: Optional[int] = None, block: int = 1 << 11,
     ``use_mmw=True``); ``use_mmw`` and ``use_simplicial`` turn on the MMW
     prune and the simplicial collapse.  ``lanes > 1`` decides that many
     consecutive rungs per dispatch (speculative deepening, same results);
-    across instances, see ``batch.solve_many``.  ``shards`` and
-    ``heuristics`` are not ported and raise ``BackendCapabilityError``
-    before any work."""
+    across instances, see ``batch.solve_many``.  ``shards > 1`` splits
+    each rung's frontier across S shards (``core.shard``, owner-hash
+    routing and work donation tuned by ``donate_ratio``; forces
+    ``lanes=1``).  ``heuristics > 0`` runs that many anytime bounds
+    rounds (``core.bounds_engine``) before each block's ladder, with
+    every draw pinned by ``seed``."""
     t0 = time.time()
     device = backend_lib.resolve_device(device)
     if backend is None:
@@ -469,8 +508,7 @@ def solve(g: Graph, *, cap: Optional[int] = None, block: int = 1 << 11,
     backend_lib.validate(backend, mode=mode, schedule=schedule,
                          use_mmw=use_mmw, use_simplicial=use_simplicial,
                          m_bits=m_bits, lanes=int(lanes),
-                         shards=int(shards), heuristics=int(heuristics),
-                         device=device)
+                         shards=int(shards), device=device)
     if g.n == 0:
         return SolveResult(0, True, 0, 0, 0, 0.0, [], {})
     solve_kw = dict(cap=cap, block=block, mode=mode, use_mmw=use_mmw,
@@ -478,7 +516,9 @@ def solve(g: Graph, *, cap: Optional[int] = None, block: int = 1 << 11,
                     use_clique=use_clique, use_paths=use_paths,
                     start_k=start_k, verbose=verbose, backend=backend,
                     use_simplicial=use_simplicial, engine=engine,
-                    lanes=lanes, seed=seed, tracker=tracker, device=device)
+                    lanes=lanes, shards=shards, donate_ratio=donate_ratio,
+                    heuristics=heuristics, seed=seed, tracker=tracker,
+                    device=device)
     if not use_preprocess:
         return solve_block(g, reconstruct=reconstruct, **solve_kw)
 

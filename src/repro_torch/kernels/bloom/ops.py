@@ -18,10 +18,12 @@ A CUDA tensor launches the kernel; a CPU tensor takes the plain version
 ``bloom_insert_ref``.  Nothing else falls back: a failed build or launch
 raises.  Both update the filter in place and return it.  ``LAUNCHES``
 counts wrapper calls that ran the kernel (two launches each: claim and
-resolve).
+resolve), ``LAUNCHES_BY_LANES`` the same calls by lane count L (1 for the
+single-lane form).
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 from typing import Optional
 
@@ -31,6 +33,7 @@ from repro_torch.core import bitset, bloom
 from repro_torch.kernels import build
 
 LAUNCHES = 0
+LAUNCHES_BY_LANES: collections.Counter = collections.Counter()
 
 THREADS = 256
 INT32_MAX = (1 << 31) - 1
@@ -159,4 +162,5 @@ def bloom_insert(filter_words, states, valid, *, m_bits: int,
     build.check_launch("bloom", err,
                        f"W={w}, B={b}, L={nl}, m_bits={m_bits}")
     LAUNCHES += 1
+    LAUNCHES_BY_LANES[nl] += 1
     return was_new, filter_words

@@ -6,16 +6,20 @@
     python -m repro_torch.launch.solve --graph queen5_5 --mode bloom --mmw
     python -m repro_torch.launch.solve --graph queen5_5 --simplicial
     python -m repro_torch.launch.solve --graph myciel4 --batch 4
+    python -m repro_torch.launch.solve --graph queen6_6 --shards 4
+    python -m repro_torch.launch.solve --graph queen5_5 --heuristics 4
     python -m repro_torch.launch.solve --dimacs path/to/graph.gr
 
 Takes the flags of ``repro.launch.solve``.  ``--device`` defaults to
 ``cuda`` and ``--backend`` to ``cuda`` on a card (the hand-written
 kernels) or ``torch`` elsewhere (the plain ops).  ``--batch L`` decides L
 consecutive rungs per dispatch (speculative deepening, same results).
-Flags this package does not port yet (``--shards``, ``--donate-ratio``,
-``--heuristics``, ``--distributed``, ``--devices`` and schedules other
-than ``doubling``) are rejected with a capability error before any
-work.
+``--shards S`` splits each rung's frontier across S shards (owner-hash
+routing, work donation past ``--donate-ratio``; same results).
+``--heuristics N`` runs N anytime bounds rounds, pinned by ``--seed``,
+before each block's ladder.  Flags this package does not port yet
+(``--distributed``, ``--devices`` and schedules other than ``doubling``)
+are rejected with a capability error before any work.
 """
 from __future__ import annotations
 
@@ -70,17 +74,13 @@ def main(argv=None):
             raise backend_lib.BackendCapabilityError(
                 "--distributed/--devices: the distributed solver is not "
                 "ported (ROADMAP A11)")
-        if args.donate_ratio is not None:
-            raise backend_lib.BackendCapabilityError(
-                "--donate-ratio: the sharded engine is not ported "
-                "(ROADMAP A10)")
         device = backend_lib.resolve_device(args.device)
         backend = args.backend or backend_lib.default_backend(device)
         backend_lib.validate(backend, mode=args.mode,
                              schedule=args.schedule, use_mmw=args.mmw,
                              use_simplicial=args.simplicial,
                              lanes=args.batch, shards=args.shards,
-                             heuristics=args.heuristics, device=device)
+                             device=device)
     except backend_lib.BackendCapabilityError as e:
         print(f"[solve] unsupported configuration: {e}", file=sys.stderr)
         return 2
@@ -103,8 +103,9 @@ def main(argv=None):
         use_clique=not args.no_clique, use_paths=not args.no_paths,
         use_preprocess=not args.no_preprocess,
         reconstruct=args.reconstruct, verbose=args.verbose,
-        engine=args.engine, lanes=args.batch, seed=args.seed,
-        device=device)
+        engine=args.engine, lanes=args.batch, shards=args.shards,
+        donate_ratio=args.donate_ratio, heuristics=args.heuristics,
+        seed=args.seed, device=device)
 
     print(f"[solve] treewidth={res.width} exact={res.exact} "
           f"lb={res.lb} ub={res.ub} states_expanded={res.expanded} "

@@ -288,3 +288,41 @@ def test_lane_dispatch_launches_once_per_chunk_of_all_lanes(dev,
         grew = {n: v - by_lanes.get(n, 0) for n, v in
                 wavefront_kernel.ops.LAUNCHES_BY_LANES.items()}
         assert sum(grew.values()) == want and grew.get(4, 0) > 0
+
+
+@pytest.mark.parametrize("mode", ["sort", "bloom"])
+def test_sharded_rung_launches_every_shard_at_once(dev, mode):
+    """A sharded rung launches the wavefront kernel with all S shards as
+    its lanes (one launch per chunk), and in Bloom mode the Bloom kernel
+    once per level with S filters; its verdict, drops and expanded count
+    are the CPU run's (sort mode: the plain ops give the same bits;
+    Bloom: no probe collisions at these sizes)."""
+    from repro_torch.core import shard
+    g = graph.myciel(4)
+    kw = dict(shards=3, cap=64, block=32, mode=mode, m_bits=1 << 20,
+              k_hashes=4)
+    for k in (8, 9, 10):
+        wf = dict(wavefront_kernel.ops.LAUNCHES_BY_LANES)
+        bl = dict(bloom_kernel.ops.LAUNCHES_BY_LANES)
+        got = shard.decide_sharded(g, k, [0, 1], device=dev, **kw)
+        want = shard.decide_sharded(g, k, [0, 1], device="cpu", **kw)
+        assert (got.feasible, got.inexact, got.expanded) == \
+            (want.feasible, want.inexact, want.expanded), k
+        grew = {n: v - wf.get(n, 0) for n, v in
+                wavefront_kernel.ops.LAUNCHES_BY_LANES.items()
+                if v != wf.get(n, 0)}
+        assert set(grew) == {3}, grew
+        grew = {n: v - bl.get(n, 0) for n, v in
+                bloom_kernel.ops.LAUNCHES_BY_LANES.items()
+                if v != bl.get(n, 0)}
+        assert set(grew) == ({3} if mode == "bloom" else set()), grew
+
+
+def test_min_degree_sweep_on_the_card_matches_the_cpu(dev):
+    from repro_torch.core import bounds_engine
+    gs = [graph.petersen(), graph.myciel(4), graph.queen(6),
+          graph.gnp(70, 0.1, 3)]
+    seeds = [1, 2, 3, 2 ** 31 + 4]
+    got = bounds_engine.ub_orders_async(gs, seeds, device=dev).result()
+    want = bounds_engine.ub_orders_async(gs, seeds, device="cpu").result()
+    assert got == want

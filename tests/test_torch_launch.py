@@ -29,8 +29,9 @@ def _port_graph(g):
     (dict(schedule="linear"), "A3"), (dict(schedule="matmul"), "A3"),
     (dict(backend="cuda", mode="bloom", m_bits=100), "multiple of 32"),
     (dict(schedule="while"), "A3"),
-    (dict(lanes=0), "lanes must be"), (dict(shards=2), "A10"),
-    (dict(heuristics=1), "A9"), (dict(backend="cuda"), "CUDA device")])
+    (dict(lanes=0), "lanes must be"), (dict(shards=0), "shards must be"),
+    (dict(backend="cuda", shards=2), "CUDA device"),
+    (dict(backend="cuda"), "CUDA device")])
 def test_unported_flags_fail_before_work(kw, item):
     g = _port_graph(oracle.make_graph("petersen"))
     tr = telemetry.Tracker()
@@ -40,8 +41,10 @@ def test_unported_flags_fail_before_work(kw, item):
 
 
 @pytest.mark.parametrize("kw", [dict(mode="bloom"), dict(use_mmw=True),
-                                dict(use_simplicial=True)],
-                         ids=["bloom", "mmw", "simplicial"])
+                                dict(use_simplicial=True), dict(shards=2),
+                                dict(heuristics=4, start_k=0)],
+                         ids=["bloom", "mmw", "simplicial", "shards",
+                              "heuristics"])
 def test_ported_flags_run_and_match_reference(kw):
     g = oracle.make_graph("petersen")
     tr = telemetry.Tracker()
@@ -72,6 +75,7 @@ def test_registry_surface():
         backend.get_op("wavefront_expand", "pallas")
     # only the packed (cuda) filter needs m_bits % 32 == 0
     backend.validate("torch", mode="bloom", m_bits=100)
+    backend.validate("torch", shards=4, lanes=2)
     backend.validate("cuda", mode="bloom", m_bits=1 << 24, use_mmw=True,
                      use_simplicial=True)
 
@@ -204,3 +208,59 @@ def test_chip_smoke_flag_values_come_from_reference(name, config):
     assert got.per_k == {want["block"]: {
         k: {"feasible": f, "inexact": i, "expanded": e}
         for k, f, i, e in want["per_k"]}}
+
+
+def _chip_smoke():
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    return chip_smoke
+
+
+def _assert_row(got, want):
+    assert (got.width, got.exact, got.lb, got.ub, got.expanded) == (
+        want["width"], want["exact"], want["lb"], want["ub"],
+        want["expanded"])
+    assert got.per_k == {want["block"]: {
+        k: {"feasible": f, "inexact": i, "expanded": e}
+        for k, f, i, e in want["per_k"]}}
+
+
+MAIN_NAMES = ["petersen", "myciel4", "queen5_5", "queen6_6",
+              pytest.param("queen7_7", marks=pytest.mark.slow)]
+
+
+@pytest.mark.parametrize("config", ["defaults", "bloom+mmw"])
+@pytest.mark.parametrize("name", MAIN_NAMES)
+def test_chip_smoke_shard_values_come_from_reference(name, config):
+    """EXPECTED_SHARDS is ``repro.core.solver.solve(g, shards=4)`` at the
+    card's sizes (cap auto, block 2048, 2^24-bit filters)."""
+    chip_smoke = _chip_smoke()
+    got = ref_solver.solve(ref_graph.REGISTRY[name](),
+                           shards=chip_smoke.SHARDS,
+                           **chip_smoke.LANE_CONFIGS[config])
+    _assert_row(got, chip_smoke.EXPECTED_SHARDS[config][name])
+
+
+@pytest.mark.parametrize("name", MAIN_NAMES)
+def test_chip_smoke_heuristic_values_come_from_reference(name):
+    chip_smoke = _chip_smoke()
+    got = ref_solver.solve(ref_graph.REGISTRY[name](),
+                           heuristics=chip_smoke.HEURISTICS)
+    _assert_row(got, chip_smoke.EXPECTED_HEUR[name])
+
+
+def test_chip_smoke_sweep_widths_come_from_reference():
+    from repro.core import bounds_engine as ref_be
+    chip_smoke = _chip_smoke()
+    pool = [(name, i) for name in chip_smoke.EXPECTED_UB
+            for i in range(len(chip_smoke.UB_SEEDS))]
+    assert len(pool) >= 16
+    assert set(chip_smoke.EXPECTED_UB) == set(ref_graph.REGISTRY)
+    out = ref_be.ub_orders_async(
+        [ref_graph.REGISTRY[name]() for name, _ in pool],
+        [chip_smoke.UB_SEEDS[i] for _, i in pool]).result()
+    assert [w for w, _ in out] == [chip_smoke.EXPECTED_UB[name][i]
+                                   for name, i in pool]
