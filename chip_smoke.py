@@ -62,7 +62,21 @@ Phases, each fatal on failure (non-zero exit, no result line):
   8. heuristics: ``solve(g, heuristics=8)`` on the five instances against
      EXPECTED_HEUR, and ``bounds_engine.ub_orders_async`` on the card over
      every REGISTRY graph with two seeds against the JAX package's widths
-     (EXPECTED_UB), with the sweep timed per dispatch.
+     (EXPECTED_UB), with the sweep timed per dispatch;
+  9. serving: a ``launch.twserved.TwServer`` on the card (8 lanes, block
+     2048, cap planned under ``budget_bytes="auto"``, 2^24-bit filters, a
+     result cache) driven over 127.0.0.1 by ``serve.client.TwClient``:
+     the five instances of phase 3 streamed together under the defaults
+     and then the paper's configuration, against EXPECTED_SERVE and
+     EXPECTED_SERVE_FLAGS (the JAX package's ``TwScheduler`` with the same
+     submits); a relabeled queen5_5 answered from the cache with no
+     launch; a ``shards=2`` queen6_6 whose every wavefront launch covers
+     2 lanes; a heuristic-only request; a cancelled queen7_7 and one more
+     petersen.  Each with its launch counts set to 0 just before it and
+     read just after; the stream walls beside phase 3's, and the pool's
+     counters.  Then the defaults' stream once more through a
+     ``TwScheduler`` on the main thread under ``torch.profiler``: the
+     admissions' host work and the device's busy time.
 
 The second-to-last line is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or ``repro``.
@@ -333,6 +347,41 @@ EXPECTED_UB = {
     "queen5_5": (19, 18), "queen6_6": (26, 27), "queen7_7": (37, 38),
     "queen8_8": (50, 51), "kneser8_3": (34, 32), "8x6_torusGrid": (15, 15),
     "grid6x6": (7, 6), "ba_100_2": (11, 11)}
+# The serving path (phase 9): ``launch.twserved.TwServer(port=0,
+# **SERVE_POOL)`` on the card, driven over 127.0.0.1 by
+# ``serve.client.TwClient``: MAIN_PATH submitted together under the
+# defaults, run to the end, then MAIN_PATH with SERVE_FLAGS.  The
+# defaults' stream ratchets the pool's padded n to 64 (queen7_7, n=49),
+# so every Bloom + MMW lane pads to W=2 and MMW sees padding rows.
+# EXPECTED_SERVE / EXPECTED_SERVE_FLAGS are the reference's scheduler on
+# the CPU (JAX_PLATFORMS=cpu, PYTHONPATH=src), one request at a time at
+# phase 9's padded n:
+#     from repro.core import graph
+#     from repro.serve.twscheduler import TwScheduler
+#     s = TwScheduler(lanes=1, block=2048, cache=64, budget_bytes="auto")
+#     s._n_pad = 64
+#     s.submit(graph.REGISTRY[name](), **knobs); s.run()
+# with knobs {} and SERVE_FLAGS.  A one-lane pool because the eight-lane
+# one takes over half an hour per stream there; without a budget the
+# planned cap does not depend on the pool's width, and the other lanes
+# of a dispatch are padding that no lane's verdicts depend on
+# (tests/test_torch_chip_smoke_serve.py pins petersen, myciel4 and
+# queen5_5, the defaults in the eight-lane pool).  Under the defaults they
+# equal EXPECTED (the scheduler's parity promise in sort mode); under
+# Bloom + MMW they equal EXPECTED_FLAGS (no 2^24-bit filter of these
+# levels fills enough for the padded word count to change a probe's
+# answer, and the padding rows changed no MMW prune here), and
+# ``shards=2`` gives queen6_6's EXPECTED.  SERVE_HEUR is a heuristic-only
+# request; EXPECTED_SERVE_HEUR its (lb, ub, exact) from the same
+# scheduler.
+SERVE_POOL = dict(lanes=8, block=2048, budget_bytes="auto", cache=64)
+SERVE_FLAGS = dict(mode="bloom", use_mmw=True)
+SERVE_SHARDS = ("queen6_6", 2)
+SERVE_HEUR = ("mcgee", dict(heuristic_only=True, heuristics=8, seed=7))
+SERVE_RELABEL_SEED = 11
+EXPECTED_SERVE = EXPECTED
+EXPECTED_SERVE_FLAGS = EXPECTED_FLAGS["bloom+mmw"]
+EXPECTED_SERVE_HEUR = dict(lb=5, ub=7, exact=False)
 # lane counts and shapes of the lane kernels' checks
 LANE_L = (1, 3, 8)
 LANE_N = (17, 33, 49, 100)
@@ -768,6 +817,7 @@ def reset_counts(ops):
         mod.LAUNCHES = 0
     ops["wavefront"].LAUNCHES_BY_B.clear()
     ops["wavefront"].LAUNCHES_BY_LANES.clear()
+    ops["wavefront"].LAUNCHES_BY_FLAGS.clear()
     ops["bloom"].LAUNCHES_BY_LANES.clear()
 
 
@@ -1130,6 +1180,191 @@ def phase_heuristics(torch, np, graph, solver, bounds_engine, telemetry,
         f"dispatch {ms:.4f} ms by CUDA events (host packing, {n} steps, "
         f"the copy back), bound {bms:.6f} ms by {by}")
     return counts
+
+
+def check_served(res, label, name, want, golden):
+    """``check_solve`` for instance ``name``'s result as it came over the
+    wire (its ``per_k`` keys are JSON strings)."""
+    got = {key: res[key] for key in ("width", "exact", "lb", "ub",
+                                     "expanded")}
+    check(got == {key: want[key] for key in got},
+          f"{label}: {got} != JAX {want}")
+    per_k = [(int(k), v["feasible"], v["inexact"], v["expanded"])
+             for k, v in res["per_k"].get(want["block"], {}).items()]
+    check(list(res["per_k"]) == [want["block"]] and per_k == want["per_k"],
+          f"{label}: per_k {res['per_k']} != JAX {want['per_k']}")
+    if name in golden:
+        check(res["width"] == golden[name]["tw"],
+              f"{label}: width {res['width']} != golden {golden[name]}")
+
+
+def serve_stream(client, names, **knobs):
+    """Submit ``names`` together, then read each request's event stream to
+    its terminal event; returns {name: (events, result)} and the wall
+    from the first submit to the last terminal event."""
+    t0 = time.perf_counter()
+    rids = {name: client.submit(name, **knobs) for name in names}
+    events = {name: list(client.stream(rid)) for name, rid in rids.items()}
+    wall = time.perf_counter() - t0
+    out = {}
+    for name, rid in rids.items():
+        check(events[name][-1]["event"] == "done",
+              f"serve {name}: stream ended in {events[name][-1]}")
+        out[name] = (events[name], client.result(rid))
+    return out, wall
+
+
+def phase_serve(torch, np, graph, twserved, client_mod, bounds_engine,
+                golden, ops, walls):
+    """The serving path: a ``TwServer`` on the card (SERVE_POOL) and a
+    ``TwClient`` over 127.0.0.1.  Each sub-phase with its launch counts
+    set to 0 just before it and read just after: the defaults' stream of
+    MAIN_PATH (EXPECTED_SERVE, which is EXPECTED; some wavefront launch of
+    several lanes), the Bloom + MMW stream (EXPECTED_SERVE_FLAGS; lane B1
+    with MMW and lane B5 launched), a relabeled queen5_5 answered from the
+    cache (no launch of any kernel), a ``shards=2`` queen6_6 (the
+    defaults' values; every B1 launch of 2 lanes), a heuristic-only
+    request (EXPECTED_SERVE_HEUR) and a cancelled queen7_7 followed by one
+    more petersen.  Returns sub-phase -> launch counts, the walls and the
+    pool's counters."""
+    srv = twserved.TwServer(port=0, **SERVE_POOL)
+    srv.start()
+    counts, by_lanes, info = {}, {}, {}
+    try:
+        c = client_mod.TwClient("127.0.0.1", srv.port, timeout=300)
+        check(c.ping(), "twserved did not answer a ping")
+        budget = srv.sched.budget_bytes
+        log(f"twserved on 127.0.0.1:{srv.port}: device {srv.sched.device}, "
+            f"backend {srv.sched.decide_kw['backend']}, lanes "
+            f"{len(srv.sched.pool)}, block {srv.sched.block}, budget "
+            f"{budget} bytes (auto), cache {SERVE_POOL['cache']} entries")
+        check(budget is not None and budget > 0,
+              f"device_memory_budget() gave {budget} on the card")
+
+        for sub, knobs, want in (("defaults", {}, EXPECTED_SERVE),
+                                 ("bloom+mmw", SERVE_FLAGS,
+                                  EXPECTED_SERVE_FLAGS)):
+            reset_counts(ops)
+            bounds_engine.LAUNCHES = 0
+            got, wall = serve_stream(c, MAIN_PATH, **knobs)
+            for name, (_events, res) in got.items():
+                check_served(res, f"serve [{sub}] {name}", name, want[name],
+                             golden)
+                if sub == "defaults":
+                    check_served(res, f"serve [{sub}] {name} against solve",
+                                 name, EXPECTED[name], golden)
+                log(f"serve [{sub}] {name}: treewidth={res['width']} "
+                    f"exact={res['exact']} lb={res['lb']} ub={res['ub']} "
+                    f"expanded={res['expanded']} rounds="
+                    f"{_events[-1]['rounds']}")
+            path = f"serve {sub}"
+            counts[path] = read_counts(ops)
+            by_lanes[path] = by_lanes_of(ops)
+            flags = dict(ops["wavefront"].LAUNCHES_BY_FLAGS)
+            check(counts[path]["wavefront"] > 0
+                  and max(by_lanes[path]["wavefront"], default=0) >= 2,
+                  f"path [{path}]: wavefront launches by lane count "
+                  f"{by_lanes[path]['wavefront']}: none of several lanes")
+            if sub == "bloom+mmw":
+                check(flags.get((True, False), 0) > 0
+                      and counts[path]["bloom"] > 0,
+                      f"path [{path}]: wavefront launches by flags {flags}, "
+                      f"Bloom calls {counts[path]['bloom']}")
+            seq = sum(walls[(sub, name)] for name in MAIN_PATH)
+            info[f"wall {sub}"] = (wall, seq)
+            log(f"path [{path}]: launches {counts[path]}; by lane count "
+                f"{by_lanes[path]}; wavefront by (mmw, simplicial) {flags}; "
+                f"stream wall {wall:.3f} s for {len(MAIN_PATH)} requests "
+                f"beside phase 3's sequential solves {seq:.3f} s ("
+                + ", ".join(f"{n} {walls[(sub, n)]:.3f}" for n in MAIN_PATH)
+                + ")")
+
+        path = "serve cache"
+        g = graph.REGISTRY["queen5_5"]()
+        perm = np.random.RandomState(SERVE_RELABEL_SEED).permutation(g.n)
+        reset_counts(ops)
+        bounds_engine.LAUNCHES = 0
+        rid = c.submit(g.relabel(perm))
+        events = list(c.stream(rid))
+        res = c.result(rid)
+        counts[path] = dict(read_counts(ops), sweep=bounds_engine.LAUNCHES)
+        check(events and all(e.get("cached") for e in events),
+              f"path [{path}]: not answered from the cache: {events}")
+        check(not any(counts[path].values()),
+              f"path [{path}]: kernels launched on a cache hit: "
+              f"{counts[path]}")
+        check_served(res, f"{path} queen5_5", "queen5_5",
+                     EXPECTED_SERVE["queen5_5"], golden)
+        log(f"path [{path}]: relabeled queen5_5 cached, width "
+            f"{res['width']}, launches {counts[path]}; cache "
+            f"{c.cache_stats()}")
+
+        name, k = SERVE_SHARDS
+        path = f"serve shards={k}"
+        reset_counts(ops)
+        got, wall = serve_stream(c, [name], shards=k, no_cache=True)
+        res = got[name][1]
+        check_served(res, f"{path} {name}", name, EXPECTED_SERVE[name],
+                     golden)
+        counts[path], by_lanes[path] = read_counts(ops), by_lanes_of(ops)
+        check(counts[path]["wavefront"] > 0
+              and set(by_lanes[path]["wavefront"]) == {k},
+              f"path [{path}]: wavefront launches by lane count "
+              f"{by_lanes[path]['wavefront']}, not all of {k} shards")
+        info[f"wall shards={k}"] = (wall, walls[("defaults", name)])
+        log(f"path [{path}]: {name} treewidth={res['width']} expanded="
+            f"{res['expanded']} wall {wall:.3f} s; launches {counts[path]}; "
+            f"by lane count {by_lanes[path]}")
+
+        name, knobs = SERVE_HEUR
+        path = "serve heuristic_only"
+        reset_counts(ops)
+        bounds_engine.LAUNCHES = 0
+        got, wall = serve_stream(c, [name], **knobs)
+        res = got[name][1]
+        counts[path] = dict(read_counts(ops), sweep=bounds_engine.LAUNCHES)
+        check({key: res[key] for key in ("lb", "ub", "exact")}
+              == EXPECTED_SERVE_HEUR,
+              f"path [{path}] {name}: {res} != JAX {EXPECTED_SERVE_HEUR}")
+        check(counts[path]["sweep"] > 0,
+              f"path [{path}]: the min-degree sweep never ran")
+        log(f"path [{path}]: {name} lb={res['lb']} ub={res['ub']} "
+            f"exact={res['exact']} wall {wall:.3f} s; launches "
+            f"{counts[path]}")
+
+        path = "serve cancel"
+        rid = c.submit("queen7_7", no_cache=True)
+        events, cancelled = [], None
+        for ev in c.stream(rid):
+            events.append(ev)
+            if cancelled is None and ev["event"] == "rung_started":
+                state = c.status(rid)["state"]
+                cancelled = c.cancel(rid)
+                check(state == "running" and cancelled,
+                      f"path [{path}]: status {state}, cancel {cancelled}")
+        check(events[-1]["event"] == "cancelled"
+              and c.status(rid)["state"] == "cancelled",
+              f"path [{path}]: stream ended in {events[-1]}")
+        after = c.result(c.submit("petersen", no_cache=True))
+        check_served(after, f"{path} petersen", "petersen",
+                     EXPECTED_SERVE["petersen"], golden)
+        log(f"path [{path}]: queen7_7 cancelled after "
+            f"{sum(e['event'] == 'rung_decided' for e in events)} decided "
+            f"rungs (lb {events[-1]['lb']}, ub {events[-1]['ub']}); one "
+            f"more petersen served: width {after['width']}")
+
+        metrics = c.metrics()
+        info["pool counters"] = metrics["pool"]["counters"]
+        info["rounds"] = metrics["rounds"]
+        log(f"metrics: rounds {metrics['rounds']}, idle syncs "
+            f"{metrics['idle_syncs']}, pool counters "
+            f"{metrics['pool']['counters']}")
+        c.shutdown()
+        srv._driver.join(timeout=60)
+        check(not srv._driver.is_alive(), "twserved did not drain and stop")
+    finally:
+        srv.close()
+    return counts, by_lanes, info
 
 
 def timing_inputs(torch, np, bitset, graph, preprocess, solver, batch,
@@ -1530,6 +1765,60 @@ def phase_split(torch, graph, preprocess, solver, walls):
         log("  the profiler reported no device time")
 
 
+def phase_serve_split(torch, graph, twscheduler, info):
+    """The defaults' stream of MAIN_PATH once more, through a
+    ``TwScheduler`` on this thread (the server's pool, no cache) under
+    torch.profiler: the stream's wall, the admissions' host work (each
+    request's preprocessing and first block plan, timed around the
+    scheduler's ``_start``), and the device's busy time by kernel."""
+    s = twscheduler.TwScheduler(**dict(SERVE_POOL, cache=None))
+    start, admit = s._start, [0.0]
+
+    def timed_start(req):
+        t0 = time.perf_counter()
+        try:
+            return start(req)
+        finally:
+            admit[0] += time.perf_counter() - t0
+
+    s._start = timed_start
+    # device activity only: the host rows of ~1000 rounds' ops would take
+    # the profiler longer to summarise than the stream takes to run
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=acts) as prof:
+        rids = [s.submit(graph.REGISTRY[name]()) for name in MAIN_PATH]
+        s.run()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for name, rid in zip(MAIN_PATH, rids):
+        check(s.done[rid].expanded == EXPECTED_SERVE[name]["expanded"],
+              f"serve split {name}: expanded {s.done[rid].expanded}")
+    by_kernel = {}
+    for evt in prof.key_averages():
+        us = _device_us(evt)
+        if us > 0:
+            by_kernel[evt.key] = by_kernel.get(evt.key, 0.0) + us
+    device_s = sum(by_kernel.values()) / 1e6
+    port_s = sum(us for key, us in by_kernel.items()
+                 if any(k in key for k in PORT_KERNEL_NAMES)) / 1e6
+    info["split"] = dict(traced_wall_s=wall, admission_s=admit[0],
+                         device_s=device_s, port_kernels_s=port_s,
+                         rounds=s.rounds,
+                         summary_s=time.perf_counter() - t0 - wall)
+    log(f"serve split [defaults]: {len(MAIN_PATH)} requests in {s.rounds} "
+        f"rounds, traced wall {wall:.3f} s (untraced stream "
+        f"{info['wall defaults'][0]:.3f} s); admissions (host planning) "
+        f"{admit[0]:.3f} s; rounds {wall - admit[0]:.3f} s; device busy "
+        f"{device_s:.3f} s ({100 * device_s / wall:.1f}% of the traced "
+        f"wall), of which the port's kernels {port_s:.3f} s; the "
+        f"profiler's summary took {info['split']['summary_s']:.1f} s")
+    for key, us in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"  device {us / 1e3:9.3f} ms  {key[:90]}")
+    if not by_kernel:
+        log("  the profiler reported no device time")
+
+
 def parse_args(argv):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--times-only", action="store_true",
@@ -1556,6 +1845,9 @@ def main(argv=None):
     from repro_torch.kernels import expand as expand_kern
     from repro_torch.kernels import mmw as mmw_kern
     from repro_torch.kernels import wavefront as wavefront_kern
+    from repro_torch.launch import twserved
+    from repro_torch.serve import client as client_mod
+    from repro_torch.serve import twscheduler
 
     kern = {"wavefront": wavefront_kern, "mmw": mmw_kern,
             "bloom": bloom_kern, "expand": expand_kern}
@@ -1602,6 +1894,12 @@ def main(argv=None):
         torch, np, graph, solver, bounds_engine, telemetry, golden, ops,
         walls)
     log(f"phase 8 (heuristics) in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    serve_counts, serve_lanes, serve_info = phase_serve(
+        torch, np, graph, twserved, client_mod, bounds_engine, golden, ops,
+        walls)
+    phase_serve_split(torch, graph, twscheduler, serve_info)
+    log(f"phase 9 (serving) in {time.perf_counter() - t0:.1f} s")
     worst["wavefront_lanes"] = max(worst["wavefront_lanes"],
                                    worst["shard_forms"]["wavefront_lanes"])
     worst["bloom_lanes"] = max(worst["bloom_lanes"],
@@ -1609,7 +1907,8 @@ def main(argv=None):
     # a lane row counts its kernel's launches on the lane and shard paths,
     # a single-lane row those on phase 3's paths and the heuristics path
     single = {**counts, f"heuristics={HEURISTICS}": heur_counts}
-    multi = {**lane_counts, **shard_counts}
+    multi = {**lane_counts, **shard_counts,
+             **{p: c for p, c in serve_counts.items() if p in serve_lanes}}
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         main_shape = times[name][0]
@@ -1628,11 +1927,14 @@ def main(argv=None):
             entry["launches_by_path"] = {p: c[base] for p, c in paths.items()}
             entry["shard_launches_by_lanes"] = {
                 p: lanes[base] for p, lanes in shard_lanes.items()}
+            entry["serve_launches_by_lanes"] = {
+                p: lanes[base] for p, lanes in serve_lanes.items()}
         if name == "wavefront_lanes":
             entry["launches_by_lanes"] = by_lanes
             entry["suite_walls_s"] = suite_walls
             entry["shard_walls_s"] = shard_walls
             entry["shard_counters"] = shard_stats_
+            entry["serve"] = serve_info
         if name.startswith("wavefront"):
             entry["variants"] = [v for v in times[name][1:]
                                  if v["shape"] == main_shape["shape"]]

@@ -97,6 +97,10 @@ def get_op(name: str, backend: str) -> Callable:
     return _OPS[name].resolve(backend)
 
 
+def ops() -> Tuple[str, ...]:
+    return tuple(sorted(_OPS))
+
+
 def capability_table() -> Dict[str, Tuple[str, ...]]:
     """op name -> backends that implement it (for docs and tests)."""
     return {name: tuple(b for b in BACKENDS if b in spec.loaders)
@@ -113,6 +117,30 @@ def resolve_device(device=None) -> torch.device:
                 "plain PyTorch ops on the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def device_memory_budget(fraction: float = 0.5,
+                         device=None) -> Optional[int]:
+    """Device memory available for frontier pools, in bytes.
+
+    ``fraction`` of what the caching allocator could still hand out on
+    ``device`` (default: the current card): the free bytes that
+    ``torch.cuda.mem_get_info`` reports plus the blocks torch has
+    reserved but not allocated, which it counts as used.  The rest stays headroom
+    for the adjacency, children and sort buffers.  Returns ``None`` on
+    the CPU or when no card is present, which ``batch.plan_capacity``
+    treats as "state-space bound only"."""
+    if device is None:
+        if not torch.cuda.is_available():
+            return None
+        device = torch.device("cuda", torch.cuda.current_device())
+    device = torch.device(device)
+    if device.type != "cuda" or not torch.cuda.is_available():
+        return None
+    free, _total = torch.cuda.mem_get_info(device)
+    cached = torch.cuda.memory_reserved(device) \
+        - torch.cuda.memory_allocated(device)
+    return int((free + max(0, cached)) * fraction)
 
 
 def default_backend(device: torch.device) -> str:

@@ -67,7 +67,9 @@ def plan_capacity(n: int, w: Optional[int] = None, *, lanes: int = 1,
     most ``n * C(n, floor(n/2))`` rows.  Never below ``block`` (chunk
     geometry must match a fixed-``cap`` run) nor below 32.
     ``budget_bytes`` bounds the ``lanes``-wide pool of
-    ``lanes * cap * W * 4`` bytes; a binding budget may reintroduce drops.
+    ``lanes * cap * W * 4`` bytes (``"auto"`` reads
+    ``backend.device_memory_budget()``, ``None`` on the CPU); a binding
+    budget may reintroduce drops.
     """
     if n <= 1:
         need = 1
@@ -76,6 +78,8 @@ def plan_capacity(n: int, w: Optional[int] = None, *, lanes: int = 1,
     cap_hi = _pow2_floor(cap_max)
     cap = min(_pow2_at_least(need), cap_hi)
     cap = max(cap, 32, _pow2_at_least(min(block, cap_hi)))
+    if budget_bytes == "auto":
+        budget_bytes = backend_lib.device_memory_budget()
     if budget_bytes is not None:
         row_bytes = 4 * max(1, w if w is not None else bitset.n_words(n))
         afford = int(budget_bytes) // (max(1, lanes) * row_bytes)
@@ -178,6 +182,8 @@ def decide_lanes_async(lanes: Sequence[Lane], *, cap: Optional[int] = None,
     backend_lib.validate(backend, mode=mode, schedule=schedule,
                          use_mmw=use_mmw, use_simplicial=use_simplicial,
                          m_bits=m_bits, lanes=len(lanes), device=device)
+    if budget_bytes == "auto":
+        budget_bytes = backend_lib.device_memory_budget(device=device)
     live = len(lanes)
     n_max = max(lane.g.n for lane in lanes)
     if n_pad is not None:
@@ -566,6 +572,8 @@ def solve_many(graphs: Sequence[Graph], *, cap: Optional[int] = None,
     backend_lib.validate(backend, mode=mode, schedule=schedule,
                          use_mmw=use_mmw, use_simplicial=use_simplicial,
                          m_bits=m_bits, lanes=lanes, device=device)
+    if budget_bytes == "auto":
+        budget_bytes = backend_lib.device_memory_budget(device=device)
     decide_kw = dict(cap=cap, block=block, mode=mode, use_mmw=use_mmw,
                      m_bits=m_bits, k_hashes=k_hashes, schedule=schedule,
                      backend=backend, use_simplicial=use_simplicial,

@@ -63,6 +63,26 @@ SMALL_BLOCK = 128
 # the solver's default Bloom filter size in bits (``solve(m_bits=...)``)
 DEFAULT_M_BITS = 1 << 24
 
+# Accounting lives in ``core.telemetry``; ``COUNTERS`` survives as the
+# reference's deprecated read-only view over the root tracker.
+COUNTERS = telemetry.COUNTERS
+
+
+def reset_counters():
+    """Deprecated: zero the process-root tracker (``telemetry.reset``)."""
+    telemetry.reset()
+
+
+def count(dispatches: int = 0, host_syncs: int = 0, **extra: int):
+    """Deprecated shim: count on the process-root tracker.  Library code
+    threads an explicit ``tracker=`` instead."""
+    kw = dict(extra)
+    if dispatches:
+        kw["dispatches"] = dispatches
+    if host_syncs:
+        kw["host_syncs"] = host_syncs
+    telemetry.root().count(**kw)
+
 
 @dataclasses.dataclass
 class DispatchHandle:

@@ -219,7 +219,7 @@ def decide_sharded_async(g: Graph, k: int, clique=(), *, shards: int,
                          use_simplicial: bool = False,
                          donate_ratio: Optional[float] = None,
                          n_pad: Optional[int] = None,
-                         budget_bytes: Optional[int] = None,
+                         budget_bytes=None,
                          tracker=None, device=None
                          ) -> engine_lib.DispatchHandle:
     """Run one sharded decide rung; return its ``DispatchHandle``.
@@ -243,6 +243,8 @@ def decide_sharded_async(g: Graph, k: int, clique=(), *, shards: int,
     backend_lib.validate(backend, mode=mode, schedule=schedule,
                          use_mmw=use_mmw, use_simplicial=use_simplicial,
                          m_bits=m_bits, shards=shards, device=device)
+    if budget_bytes == "auto":
+        budget_bytes = backend_lib.device_memory_budget(device=device)
     ratio = DEFAULT_DONATE_RATIO if donate_ratio is None \
         else float(donate_ratio)
 

@@ -14,7 +14,9 @@ A CUDA tensor launches the kernel; a CPU tensor takes the plain version
 ``wavefront_ref``.  Nothing else falls back: a failed build or launch
 raises.  ``LAUNCHES`` counts kernel launches, ``LAUNCHES_BY_B`` the same
 launches by chunk width (rows B of each lane's states) and
-``LAUNCHES_BY_LANES`` by lane count L (1 for the single-lane form).
+``LAUNCHES_BY_LANES`` by lane count L (1 for the single-lane form) and
+``LAUNCHES_BY_FLAGS`` by pruning rules, keyed ``(use_mmw,
+use_simplicial)``.
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ from repro_torch.kernels import build
 LAUNCHES = 0
 LAUNCHES_BY_B: collections.Counter = collections.Counter()
 LAUNCHES_BY_LANES: collections.Counter = collections.Counter()
+LAUNCHES_BY_FLAGS: collections.Counter = collections.Counter()
 
 # states (warps) per thread block.  A block holds the adjacency (n*W words)
 # in shared memory; under the simplicial rule each warp adds n*W words, 40
@@ -146,4 +149,5 @@ def wavefront_expand(adj, states, valid, k, allowed, *, n: int,
         LAUNCHES += 1
         LAUNCHES_BY_B[b] += 1
         LAUNCHES_BY_LANES[nl] += 1
+        LAUNCHES_BY_FLAGS[(bool(use_mmw), bool(use_simplicial))] += 1
     return children, feasible

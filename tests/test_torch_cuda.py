@@ -326,3 +326,40 @@ def test_min_degree_sweep_on_the_card_matches_the_cpu(dev):
     got = bounds_engine.ub_orders_async(gs, seeds, device=dev).result()
     want = bounds_engine.ub_orders_async(gs, seeds, device="cpu").result()
     assert got == want
+
+
+@pytest.mark.parametrize("mode", ["sort", "bloom"])
+def test_scheduler_serves_two_requests_on_the_card(dev, mode):
+    """``TwScheduler(device="cuda")`` serves two requests through the lane
+    forms of the kernels (one wavefront launch for both lanes while both
+    run) with the results the same scheduler gives on the CPU, events
+    included (their clocked ``timings`` dropped)."""
+    from repro_torch.serve.twscheduler import TwScheduler
+
+    def serve(device):
+        events = []
+        # a 2^24-bit filter stays nearly empty here, so the row-order
+        # kernel and the batch-queried plain op keep the same bits
+        s = TwScheduler(lanes=2, block=32, cap=1 << 12, mode=mode,
+                        device=device)
+        rids = [s.submit(g, on_event=events.append)
+                for g in (graph.petersen(), graph.myciel(4))]
+        s.run()
+        for ev in events:
+            if "metrics" in ev and ev["metrics"]:
+                ev["metrics"].pop("timings", None)
+                ev["metrics"].pop("scope", None)
+        return [(r.width, r.exact, r.lb, r.ub, r.expanded, r.per_k)
+                for r in (s.done[rid] for rid in rids)], events, s
+
+    lanes = dict(wavefront_kernel.ops.LAUNCHES_BY_LANES)
+    got, got_events, s = serve(dev)
+    assert s.decide_kw["backend"] == "cuda"
+    grew = {n: v - lanes.get(n, 0) for n, v in
+            wavefront_kernel.ops.LAUNCHES_BY_LANES.items()
+            if v != lanes.get(n, 0)}
+    assert grew.get(2, 0) > 0, grew
+    want, want_events, _ = serve("cpu")
+    assert got == want
+    assert got_events == want_events
+    assert [r[0] for r in got] == [4, 10]

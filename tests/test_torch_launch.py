@@ -1,10 +1,12 @@
-"""Port surface: unported and ported flags, the backend registry, the CLI,
-import hygiene and ``chip_smoke.py``'s constants.
+"""Port surface: unported and ported flags, the backend registry, the CLI
+and import hygiene.
 
 Unported flags must fail with ``BackendCapabilityError`` before any work;
-ported ones run and match the reference; the CLI prints the reference's
-result line; ``repro_torch`` imports neither ``jax`` nor ``repro``;
-``chip_smoke.py``'s expected results are the JAX package's.
+ported ones run and match the reference, ``budget_bytes="auto"`` among
+them (ROADMAP C1); the CLI prints the reference's result line;
+``repro_torch`` and ``chip_smoke.py`` import neither ``jax`` nor
+``repro``.  ``chip_smoke.py``'s expected values are pinned to the JAX
+package's in ``tests/test_torch_chip_smoke*.py``.
 """
 import json
 import pathlib
@@ -14,7 +16,6 @@ import sys
 import pytest
 
 import oracle
-from repro.core import graph as ref_graph
 from repro.core import solver as ref_solver
 from repro_torch.core import backend, graph, solver, telemetry
 
@@ -80,6 +81,37 @@ def test_registry_surface():
                      use_simplicial=True)
 
 
+def test_ops_equal_the_reference_ops():
+    from repro.core import backend as ref_backend
+    assert backend.ops() == ref_backend.ops()
+    assert backend.ops() == tuple(sorted(backend.capability_table()))
+
+
+def test_solve_many_auto_budget_equals_reference():
+    from repro.core import batch as ref_batch
+    from repro_torch.core import batch
+    g = oracle.make_graph("petersen")
+    [got] = batch.solve_many([_port_graph(g)], budget_bytes="auto",
+                             device="cpu")
+    [want] = ref_batch.solve_many([g], budget_bytes="auto")
+    assert (got.width, got.expanded) == (4, 139)
+    assert (got.width, got.exact, got.lb, got.ub, got.expanded,
+            got.per_k) == (want.width, want.exact, want.lb, want.ub,
+                           want.expanded, want.per_k)
+
+
+def test_engine_counter_shims_read_the_root_tracker():
+    from repro_torch.core import engine
+    engine.reset_counters()
+    assert all(v == 0 for v in engine.COUNTERS.values())
+    engine.count(dispatches=2, host_syncs=1, shard_donations=3)
+    assert (engine.COUNTERS["dispatches"], engine.COUNTERS["host_syncs"],
+            engine.COUNTERS["shard_donations"]) == (2, 1, 3)
+    assert engine.COUNTERS is telemetry.COUNTERS
+    engine.reset_counters()
+    assert engine.COUNTERS["dispatches"] == 0
+
+
 def test_default_device_needs_a_card():
     import torch
     if torch.cuda.is_available():
@@ -136,7 +168,12 @@ def test_import_hygiene_no_jax_no_repro():
         "repro_torch.core.engine, repro_torch.core.bloom, "
         "repro_torch.kernels.wavefront, repro_torch.kernels.mmw, "
         "repro_torch.kernels.expand, repro_torch.kernels.bloom, "
-        "repro_torch.kernels.build, repro_torch.launch.solve\n"
+        "repro_torch.kernels.build, repro_torch.launch.solve, "
+        "repro_torch.core.canon, repro_torch.serve.cache, "
+        "repro_torch.serve.slots, repro_torch.serve.client, "
+        "repro_torch.serve.twscheduler, repro_torch.launch.twserve, "
+        "repro_torch.launch.twserved, repro_torch.workload, "
+        "repro_torch.workload.__main__\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "print(json.dumps(bad))\n")
@@ -152,115 +189,3 @@ def test_chip_smoke_imports_nothing_of_jax_or_repro():
         if words[:1] in (["import"], ["from"]):
             mod = words[1].split(".")[0].rstrip(",")
             assert mod not in ("jax", "repro"), line
-
-
-@pytest.mark.parametrize("name", ["petersen", "queen5_5", "myciel4"])
-def test_chip_smoke_expected_values_come_from_reference(name):
-    import importlib.util
-    spec = importlib.util.spec_from_file_location("chip_smoke",
-                                                  ROOT / "chip_smoke.py")
-    chip_smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(chip_smoke)
-    want = chip_smoke.EXPECTED[name]
-    got = ref_solver.solve(ref_graph.REGISTRY[name]())
-    assert (got.width, got.exact, got.lb, got.ub, got.expanded) == (
-        want["width"], want["exact"], want["lb"], want["ub"],
-        want["expanded"])
-    assert got.per_k == {want["block"]: {
-        k: {"feasible": f, "inexact": i, "expanded": e}
-        for k, f, i, e in want["per_k"]}}
-
-
-@pytest.mark.parametrize("name", ["petersen", "myciel3", "queen5_5"])
-def test_chip_smoke_suite_values_in_sort_mode_are_sequential(name):
-    """``solve_many``'s default configuration gives each instance its
-    sequential ``solve`` result (no padding caveat applies), so the lane
-    phase's expected defaults are the reference's ``solve`` values."""
-    import importlib.util
-    spec = importlib.util.spec_from_file_location("chip_smoke",
-                                                  ROOT / "chip_smoke.py")
-    chip_smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(chip_smoke)
-    want = chip_smoke.EXPECTED_MANY["defaults"][name]
-    got = ref_solver.solve(ref_graph.REGISTRY[name]())
-    assert (got.width, got.exact, got.lb, got.ub, got.expanded) == (
-        want["width"], want["exact"], want["lb"], want["ub"],
-        want["expanded"])
-    assert got.per_k == {want["block"]: {
-        k: {"feasible": f, "inexact": i, "expanded": e}
-        for k, f, i, e in want["per_k"]}}
-
-
-@pytest.mark.parametrize("config", ["bloom+mmw", "simplicial"])
-@pytest.mark.parametrize("name", ["petersen", "queen5_5", "myciel4"])
-def test_chip_smoke_flag_values_come_from_reference(name, config):
-    import importlib.util
-    spec = importlib.util.spec_from_file_location("chip_smoke",
-                                                  ROOT / "chip_smoke.py")
-    chip_smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(chip_smoke)
-    want = chip_smoke.EXPECTED_FLAGS[config][name]
-    got = ref_solver.solve(ref_graph.REGISTRY[name](),
-                           **chip_smoke.FLAG_CONFIGS[config])
-    assert (got.width, got.exact, got.lb, got.ub, got.expanded) == (
-        want["width"], want["exact"], want["lb"], want["ub"],
-        want["expanded"])
-    assert got.per_k == {want["block"]: {
-        k: {"feasible": f, "inexact": i, "expanded": e}
-        for k, f, i, e in want["per_k"]}}
-
-
-def _chip_smoke():
-    import importlib.util
-    spec = importlib.util.spec_from_file_location("chip_smoke",
-                                                  ROOT / "chip_smoke.py")
-    chip_smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(chip_smoke)
-    return chip_smoke
-
-
-def _assert_row(got, want):
-    assert (got.width, got.exact, got.lb, got.ub, got.expanded) == (
-        want["width"], want["exact"], want["lb"], want["ub"],
-        want["expanded"])
-    assert got.per_k == {want["block"]: {
-        k: {"feasible": f, "inexact": i, "expanded": e}
-        for k, f, i, e in want["per_k"]}}
-
-
-MAIN_NAMES = ["petersen", "myciel4", "queen5_5", "queen6_6",
-              pytest.param("queen7_7", marks=pytest.mark.slow)]
-
-
-@pytest.mark.parametrize("config", ["defaults", "bloom+mmw"])
-@pytest.mark.parametrize("name", MAIN_NAMES)
-def test_chip_smoke_shard_values_come_from_reference(name, config):
-    """EXPECTED_SHARDS is ``repro.core.solver.solve(g, shards=4)`` at the
-    card's sizes (cap auto, block 2048, 2^24-bit filters)."""
-    chip_smoke = _chip_smoke()
-    got = ref_solver.solve(ref_graph.REGISTRY[name](),
-                           shards=chip_smoke.SHARDS,
-                           **chip_smoke.LANE_CONFIGS[config])
-    _assert_row(got, chip_smoke.EXPECTED_SHARDS[config][name])
-
-
-@pytest.mark.parametrize("name", MAIN_NAMES)
-def test_chip_smoke_heuristic_values_come_from_reference(name):
-    chip_smoke = _chip_smoke()
-    got = ref_solver.solve(ref_graph.REGISTRY[name](),
-                           heuristics=chip_smoke.HEURISTICS)
-    _assert_row(got, chip_smoke.EXPECTED_HEUR[name])
-
-
-def test_chip_smoke_sweep_widths_come_from_reference():
-    from repro.core import bounds_engine as ref_be
-    chip_smoke = _chip_smoke()
-    pool = [(name, i) for name in chip_smoke.EXPECTED_UB
-            for i in range(len(chip_smoke.UB_SEEDS))]
-    assert len(pool) >= 16
-    assert set(chip_smoke.EXPECTED_UB) == set(ref_graph.REGISTRY)
-    out = ref_be.ub_orders_async(
-        [ref_graph.REGISTRY[name]() for name, _ in pool],
-        [chip_smoke.UB_SEEDS[i] for _, i in pool]).result()
-    assert [w for w, _ in out] == [chip_smoke.EXPECTED_UB[name][i]
-                                   for name, i in pool]

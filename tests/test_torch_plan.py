@@ -123,3 +123,24 @@ def test_plan_capacity_identical(n):
     assert (batch.plan_capacity(n, cap_max=1000)
             == ref_batch.plan_capacity(n, cap_max=1000))
     assert batch.DEFAULT_CAP == ref_batch.DEFAULT_CAP
+
+
+@pytest.mark.parametrize("n,w,lanes", [(14, 1, 8), (10, None, 1),
+                                       (40, 2, 4)])
+def test_plan_capacity_auto_budget_equals_reference(n, w, lanes):
+    """``budget_bytes="auto"`` reads the device's free memory; on the CPU
+    there is none to read, so the plan is the state-space bound alone, as
+    in the reference (``plan_capacity(14, 1, lanes=8, "auto")`` is
+    65536)."""
+    got = batch.plan_capacity(n, w, lanes=lanes, budget_bytes="auto")
+    assert got == ref_batch.plan_capacity(n, w, lanes=lanes,
+                                          budget_bytes="auto")
+    assert got == batch.plan_capacity(n, w, lanes=lanes)
+    if (n, w, lanes) == (14, 1, 8):
+        assert got == 65536
+
+
+def test_device_memory_budget_is_none_without_a_card():
+    from repro_torch.core import backend
+    assert backend.device_memory_budget(device="cpu") is None
+    assert backend.device_memory_budget(0.25, device="cpu") is None
