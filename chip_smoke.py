@@ -76,7 +76,22 @@ Phases, each fatal on failure (non-zero exit, no result line):
      read just after; the stream walls beside phase 3's, and the pool's
      counters.  Then the defaults' stream once more through a
      ``TwScheduler`` on the main thread under ``torch.profiler``: the
-     admissions' host work and the device's busy time.
+     admissions' host work and the device's busy time;
+ 10. distributed: ``distributed.solve_distributed`` with DIST_RANKS = 4
+     ranks sharing the card over gloo (``distributed.launch``) at the
+     CLI's defaults for ``--distributed`` (cap 2^18, so cap_local 2^16;
+     block 1024) on the five instances and on queen6_6 with MMW and with
+     the simplicial rule, against EXPECTED_DIST (the JAX package's
+     ``solve_distributed`` with 4 forced host devices); queen6_6 on one
+     rank over NCCL (a one-rank group from no environment); the
+     reference's restart case (checkpoints on 4 ranks, a resume from the
+     middle one on 4 ranks and on a 2-rank subgroup); the mesh rung
+     ``shard.decide_sharded(mesh=...)`` against the single-lane decide;
+     and ``solve(queen5_5, schedule=s, backend="torch")`` on the card for
+     the four closure schedules.  Every rank's launch counts are set to 0
+     just before each path and read just after, and the wavefront kernel
+     must launch in every rank on queen6_6 and queen7_7; the walls beside
+     phase 3's, and the host time of the collectives on queen7_7.
 
 The second-to-last line is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or ``repro``.
@@ -382,6 +397,52 @@ SERVE_RELABEL_SEED = 11
 EXPECTED_SERVE = EXPECTED
 EXPECTED_SERVE_FLAGS = EXPECTED_FLAGS["bloom+mmw"]
 EXPECTED_SERVE_HEUR = dict(lb=5, ub=7, exact=False)
+# The distributed path (phase 10).  ``distributed.solve_distributed`` on
+# DIST_RANKS ranks sharing the card over gloo, with cap_local = DIST_CAP //
+# ranks and block DIST_BLOCK (the CLI's ``--distributed`` defaults), on each
+# of DIST_CASES.  EXPECTED_DIST is ``repro.core.distributed.
+# solve_distributed`` on the CPU with 4 forced host devices
+# (XLA_FLAGS=--xla_force_host_platform_device_count=4) and the same
+# arguments; tests/test_torch_chip_smoke_dist*.py re-derive it.  Without
+# overflow it is the single-device result; queen7_7 overflows per rank
+# from the 2^16-row local buffers and expands more than phase 3's.
+DIST_RANKS = 4
+DIST_CAP = 1 << 18
+DIST_BLOCK = 1 << 10
+DIST_CASES = [(name, {}) for name in MAIN_PATH] + [
+    ("queen6_6", dict(use_mmw=True)), ("queen6_6", dict(use_simplicial=True))]
+EXPECTED_DIST = {
+    "petersen": dict(width=4, exact=True, lb=3, ub=5, expanded=139),
+    "myciel4": dict(width=10, exact=True, lb=8, ub=11, expanded=81341),
+    "queen5_5": dict(width=18, exact=True, lb=12, ub=18, expanded=2279),
+    "queen6_6": dict(width=25, exact=True, lb=15, ub=26, expanded=47135),
+    "queen7_7": dict(width=35, exact=False, lb=18, ub=37, expanded=2186024),
+    "queen6_6 use_mmw": dict(width=25, exact=True, lb=15, ub=26,
+                             expanded=41156),
+    "queen6_6 use_simplicial": dict(width=25, exact=True, lb=15, ub=26,
+                                    expanded=47135),
+}
+# queen6_6 on one rank over NCCL, cap_local DIST_CAP: the reference at D=1
+DIST_SINGLE = "queen6_6"
+EXPECTED_DIST_SINGLE = dict(width=25, exact=True, lb=15, ub=26,
+                            expanded=47135)
+# the reference's restart case (tests/test_distributed_tw.py): decide k on
+# the named graph with its greedy clique, checkpoints on DIST_RANKS ranks
+# (host engine), then a resume from the middle checkpoint on DIST_RANKS
+# ranks and on 2 (cap_local doubled); (feasible, inexact, expanded) of
+# each from ``repro.core.distributed.decide_distributed`` at the same D
+DIST_RESTART = dict(name="queen5_5", k=18, cap_local=1 << 11, block=1 << 6)
+EXPECTED_RESTART = dict(checkpoints=6, mid_level=4,
+                        full=(True, False, 2525), resume=(True, False, 2525),
+                        resume2=(True, False, 2525))
+# ``shard.decide_sharded(petersen, k, clique, shards=DIST_RANKS, mesh=...,
+# cap=2^9, block=2^6)``: the reference's single-lane decide (cap 2^12,
+# block 2^6) gives these (feasible, inexact, expanded) for k = 3, 4
+MESH_RUNG = dict(name="petersen", ks=(3, 4), cap=1 << 9, block=1 << 6)
+EXPECTED_MESH_RUNG = [(False, False, 40), (True, False, 99)]
+# ``solve(queen5_5, schedule=s, backend="torch")`` on the card; the
+# reference's ``solve(g, schedule=s)`` gives EXPECTED's row for every s
+SCHEDULE_CHECK = ("queen5_5", ("doubling", "while", "linear", "matmul"))
 # lane counts and shapes of the lane kernels' checks
 LANE_L = (1, 3, 8)
 LANE_N = (17, 33, 49, 100)
@@ -1367,6 +1428,195 @@ def phase_serve(torch, np, graph, twserved, client_mod, bounds_engine,
     return counts, by_lanes, info
 
 
+def dist_label(name, flags):
+    return " ".join([name] + sorted(flags))
+
+
+def solve_row(res):
+    return dict(width=res.width, exact=res.exact, lb=res.lb, ub=res.ub,
+                expanded=res.expanded)
+
+
+def kernel_counts():
+    """This process's launch counts of every kernel."""
+    from repro_torch.kernels import bloom, expand, mmw, wavefront
+    return {"wavefront": wavefront.ops.LAUNCHES, "mmw": mmw.ops.LAUNCHES,
+            "bloom": bloom.ops.LAUNCHES, "expand": expand.ops.LAUNCHES}
+
+
+def reset_kernel_counts():
+    from repro_torch.kernels import bloom, expand, mmw, wavefront
+    for mod in (bloom, expand, mmw, wavefront):
+        mod.ops.LAUNCHES = 0
+
+
+def dist_rank(mesh):
+    """Phase 10 on one rank of DIST_RANKS (run by ``distributed.launch``):
+    each path with this rank's launch counts set to 0 just before it and
+    read just after.  Returns host values only."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import bounds, distributed, graph, shard, telemetry
+
+    out = dict(rank=mesh.rank, backend=mesh.backend, device=str(mesh.device),
+               devices=list(mesh.devices), paths={})
+    for name, flags in DIST_CASES:
+        tr = telemetry.Tracker()
+        reset_kernel_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = distributed.solve_distributed(
+            graph.REGISTRY[name](), mesh, cap_local=DIST_CAP // mesh.size,
+            block=DIST_BLOCK, tracker=tr, **flags)
+        torch.cuda.synchronize()
+        coll = tr.snapshot()["timings"].get("collective_s",
+                                            {"calls": 0, "total_s": 0.0})
+        out["paths"][dist_label(name, flags)] = dict(
+            row=solve_row(res), launches=kernel_counts(),
+            wall=time.perf_counter() - t0, collective_calls=coll["calls"],
+            collective_s=coll["total_s"])
+
+    r = DIST_RESTART
+    g = graph.REGISTRY[r["name"]]()
+    clique = bounds.greedy_max_clique(g)
+    kw = dict(cap_local=r["cap_local"], block=r["block"])
+    ckpts = []
+    reset_kernel_counts()
+    full = distributed.decide_distributed(g, r["k"], clique, mesh,
+                                          checkpoint_cb=ckpts.append, **kw)
+    mid = [ckpts[len(ckpts) // 2] if mesh.rank == 0 else None]
+    dist.broadcast_object_list(mid, src=0, group=mesh.group)
+    resume = distributed.decide_distributed(g, r["k"], clique, mesh,
+                                            resume=mid[0], **kw)
+    pair = dist.new_group([0, 1])              # every rank takes part
+    resume2 = None
+    if mesh.rank < 2:
+        mesh2 = distributed.make_solver_mesh(group=pair, device=mesh.device)
+        resume2 = tuple(distributed.decide_distributed(
+            g, r["k"], clique, mesh2, resume=mid[0],
+            cap_local=2 * r["cap_local"], block=r["block"]))
+    dist.barrier(group=mesh.group)
+    out["restart"] = dict(
+        checkpoints=len(ckpts) if mesh.rank == 0 else None,
+        mid_level=mid[0]["level"], full=tuple(full), resume=tuple(resume),
+        resume2=resume2, launches=kernel_counts())
+
+    m = MESH_RUNG
+    g = graph.REGISTRY[m["name"]]()
+    clique = bounds.greedy_max_clique(g)
+    reset_kernel_counts()
+    rungs = [shard.decide_sharded(g, k, clique, shards=mesh.size, mesh=mesh,
+                                  cap=m["cap"], block=m["block"])
+             for k in m["ks"]]
+    out["mesh_rung"] = dict(
+        results=[(x.feasible, x.inexact, x.expanded) for x in rungs],
+        launches=kernel_counts())
+    return out
+
+
+def phase_distributed(torch, graph, solver, distributed, ops, walls):
+    """The distributed path: queen6_6 on one rank over NCCL in this
+    process, the schedules on the card, then DIST_RANKS ranks over gloo
+    (``dist_rank``).  Returns path -> summed launch counts and the
+    per-rank results."""
+    import torch.distributed as dist
+
+    counts = {}
+    name = SCHEDULE_CHECK[0]
+    for s in SCHEDULE_CHECK[1]:
+        t0 = time.perf_counter()
+        res = solver.solve(graph.REGISTRY[name](), schedule=s,
+                           backend="torch", device=DEVICE)
+        torch.cuda.synchronize()
+        got = solve_row(res)
+        want = {key: EXPECTED[name][key] for key in got}
+        check(got == want, f"schedule {s} {name}: {got} != JAX {want}")
+        log(f"solve [schedule={s}, backend=torch] {name}: "
+            f"treewidth={res.width} expanded={res.expanded} "
+            f"wall={time.perf_counter() - t0:.3f} s")
+
+    mesh = distributed.make_solver_mesh()
+    try:
+        check(mesh.size == 1 and mesh.backend == "nccl",
+              f"one rank with a card: backend {mesh.backend}, not nccl")
+        reset_counts(ops)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = distributed.solve_distributed(
+            graph.REGISTRY[DIST_SINGLE](), mesh, cap_local=DIST_CAP,
+            block=DIST_BLOCK)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    path = f"distributed D=1 nccl {DIST_SINGLE}"
+    counts[path] = read_counts(ops)
+    check(solve_row(res) == EXPECTED_DIST_SINGLE,
+          f"{path}: {solve_row(res)} != JAX {EXPECTED_DIST_SINGLE}")
+    check(counts[path]["wavefront"] > 0,
+          f"{path}: the wavefront kernel never launched")
+    log(f"solve [{path}]: {solve_row(res)} launches {counts[path]} wall="
+        f"{wall:.3f} s (phase 3 single device: "
+        f"{walls[('defaults', DIST_SINGLE)]:.3f} s)")
+
+    t0 = time.perf_counter()
+    ranks = distributed.launch(dist_rank, DIST_RANKS, device=DEVICE)
+    log(f"{DIST_RANKS} ranks over {ranks[0]['backend']} on "
+        f"{ranks[0]['devices']}: launch and run {time.perf_counter() - t0:.1f}"
+        f" s; collectives on CUDA tensors, no host staging")
+    check(all(r["backend"] == "gloo" for r in ranks),
+          "ranks sharing one card must run over gloo")
+    for label, want in EXPECTED_DIST.items():
+        rows = [r["paths"][label]["row"] for r in ranks]
+        check(all(row == want for row in rows),
+              f"distributed {label}: {rows} != JAX {want}")
+        launched = [r["paths"][label]["launches"]["wavefront"] for r in ranks]
+        counts[f"distributed D={DIST_RANKS} {label}"] = {
+            k: sum(r["paths"][label]["launches"][k] for r in ranks)
+            for k in ops}
+        if label.split()[0] in ("queen6_6", "queen7_7"):
+            check(all(n > 0 for n in launched),
+                  f"distributed {label}: wavefront launches by rank "
+                  f"{launched}, not in every rank")
+        name, *flag = label.split()
+        config = {"use_simplicial": "simplicial"}.get(
+            flag[0] if flag else "", "defaults")
+        ref_wall = walls[(config, name)]
+        log(f"solve [distributed D={DIST_RANKS} gloo] {label}: "
+            f"{rows[0]} wavefront launches by rank {launched}; wall by rank "
+            + ", ".join(f"{r['paths'][label]['wall']:.3f}" for r in ranks)
+            + f" s (phase 3 {config}: {ref_wall:.3f} s)")
+    for r in ranks:
+        q7 = r["paths"]["queen7_7"]
+        log(f"queen7_7 rank {r['rank']}: {q7['collective_calls']} collective "
+            f"calls, host time {q7['collective_s']:.3f} s of "
+            f"{q7['wall']:.3f} s")
+
+    rs = [r["restart"] for r in ranks]
+    got = dict(checkpoints=rs[0]["checkpoints"], mid_level=rs[0]["mid_level"],
+               full=rs[0]["full"], resume=rs[0]["resume"],
+               resume2=rs[0]["resume2"])
+    check(got == EXPECTED_RESTART, f"restart: {got} != JAX {EXPECTED_RESTART}")
+    check(all(x["full"] == rs[0]["full"] and x["resume"] == rs[0]["resume"]
+              for x in rs) and rs[1]["resume2"] == rs[0]["resume2"],
+          f"restart: ranks disagree {rs}")
+    counts[f"distributed D={DIST_RANKS} restart"] = {
+        k: sum(x["launches"][k] for x in rs) for k in ops}
+    log(f"restart {DIST_RESTART['name']} k={DIST_RESTART['k']}: {got}")
+
+    mr = [r["mesh_rung"] for r in ranks]
+    check(all(x["results"] == EXPECTED_MESH_RUNG for x in mr),
+          f"mesh rung: {[x['results'] for x in mr]} != JAX "
+          f"{EXPECTED_MESH_RUNG}")
+    counts[f"distributed D={DIST_RANKS} mesh rung"] = {
+        k: sum(x["launches"][k] for x in mr) for k in ops}
+    log(f"mesh rung {MESH_RUNG['name']} k={MESH_RUNG['ks']}: "
+        f"{mr[0]['results']}")
+    for path, c in counts.items():
+        log(f"path [{path}]: launches {c}")
+    return counts, ranks
+
+
 def timing_inputs(torch, np, bitset, graph, preprocess, solver, batch,
                   name, k, block=2048):
     """B=block states from the largest level of ``name`` at width k."""
@@ -1838,8 +2088,8 @@ def main(argv=None):
     sys.path.insert(0, str(pathlib.Path(args.src).resolve()))
     import numpy as np
     from repro_torch.core import (batch, bitset, bloom, bounds_engine,
-                                  components, dedup, graph, preprocess,
-                                  shard, solver, telemetry)
+                                  components, dedup, distributed, graph,
+                                  preprocess, shard, solver, telemetry)
     from repro_torch.kernels import bloom as bloom_kern
     from repro_torch.kernels import build
     from repro_torch.kernels import expand as expand_kern
@@ -1900,13 +2150,18 @@ def main(argv=None):
         walls)
     phase_serve_split(torch, graph, twscheduler, serve_info)
     log(f"phase 9 (serving) in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    dist_counts, dist_ranks = phase_distributed(torch, graph, solver,
+                                                distributed, ops, walls)
+    log(f"phase 10 (distributed) in {time.perf_counter() - t0:.1f} s")
     worst["wavefront_lanes"] = max(worst["wavefront_lanes"],
                                    worst["shard_forms"]["wavefront_lanes"])
     worst["bloom_lanes"] = max(worst["bloom_lanes"],
                                worst["shard_forms"]["bloom_lanes"])
     # a lane row counts its kernel's launches on the lane and shard paths,
     # a single-lane row those on phase 3's paths and the heuristics path
-    single = {**counts, f"heuristics={HEURISTICS}": heur_counts}
+    single = {**counts, f"heuristics={HEURISTICS}": heur_counts,
+              **dist_counts}
     multi = {**lane_counts, **shard_counts,
              **{p: c for p, c in serve_counts.items() if p in serve_lanes}}
     kernels = []
@@ -1923,6 +2178,16 @@ def main(argv=None):
             wrapper_ms=main_shape["wrapper_ms"])
         if name == "wavefront":
             entry["launches_by_width"] = by_width
+            entry["distributed"] = {
+                "launches_by_path": {p: c["wavefront"]
+                                     for p, c in dist_counts.items()},
+                "ranks": [{k: r[k] for k in ("rank", "backend", "device")}
+                          | {"paths": {p: {k: v[k] for k in
+                                           ("launches", "wall",
+                                            "collective_calls",
+                                            "collective_s")}
+                                       for p, v in r["paths"].items()}}
+                          for r in dist_ranks]}
         if name.endswith("_lanes"):
             entry["launches_by_path"] = {p: c[base] for p, c in paths.items()}
             entry["shard_launches_by_lanes"] = {

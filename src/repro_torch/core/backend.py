@@ -32,10 +32,12 @@ are also the sharded engine's shards, ``core.shard``): states
 (``bloom_make_filter(..., lanes=L)``).  Under ``cuda`` each is one
 launch (or call) for every lane.
 
-What the port does not do yet fails in ``validate`` with a
-``BackendCapabilityError`` naming the ROADMAP item that adds it, before
-any work starts.  Loaders are thunks, so importing this module loads no
-kernel.
+The ``torch`` ops take every closure schedule of the reference's
+``jax`` backend (``TORCH_SCHEDULES``); the CUDA kernels bake in the
+static doubling one (``CUDA_SCHEDULES``), as the reference's Pallas
+kernels do.  What a backend cannot run fails in ``validate`` with a
+``BackendCapabilityError``, before any work starts.  Loaders are
+thunks, so importing this module loads no kernel.
 """
 from __future__ import annotations
 
@@ -52,9 +54,10 @@ DEDUP_MODES: Tuple[str, ...] = ("sort", "bloom")
 # sharded engines
 BATCHED_BACKENDS: Tuple[str, ...] = ("torch", "cuda")
 
-# closure schedules ported so far (the reference's jax backend also has
-# "while", "linear" and "matmul": the Table-6 sweep)
-SCHEDULES: Tuple[str, ...] = ("doubling",)
+# closure schedules of the torch ops (the Table-6 sweep); the CUDA kernels
+# bake in the static-trip-count doubling schedule
+TORCH_SCHEDULES: Tuple[str, ...] = ("doubling", "while", "linear", "matmul")
+CUDA_SCHEDULES: Tuple[str, ...] = ("doubling",)
 
 
 class BackendCapabilityError(ValueError):
@@ -162,11 +165,14 @@ def validate(backend: str, *, mode: str = "sort",
         raise BackendCapabilityError(
             f"unknown dedup mode {mode!r}; known modes: "
             f"{', '.join(DEDUP_MODES)}")
-    if schedule not in SCHEDULES:
+    schedules = CUDA_SCHEDULES if backend == "cuda" else TORCH_SCHEDULES
+    if schedule not in schedules:
         raise BackendCapabilityError(
-            f"schedule={schedule!r} is not ported (supported: "
-            f"{', '.join(SCHEDULES)}); the other closure schedules are "
-            "the Table-6 sweep (ROADMAP A3)")
+            f"backend={backend!r} does not implement schedule="
+            f"{schedule!r} (supported: {', '.join(schedules)}). The CUDA "
+            "wavefront kernel bakes in the static doubling fixpoint; the "
+            "other schedules exist only as torch reference loops; use "
+            "schedule='doubling' or backend='torch'.")
     if lanes < 1:
         raise BackendCapabilityError(
             f"lanes must be >= 1 (got {lanes})")
@@ -230,10 +236,10 @@ def _cuda_expand_degrees():
     from repro_torch.kernels.expand import expand_degrees
 
     def expand_degrees_op(adj, states, *, n, schedule="doubling"):
-        if schedule != "doubling":
+        if schedule not in CUDA_SCHEDULES:
             raise BackendCapabilityError(
-                f"the CUDA expand kernel runs the static doubling closure; "
-                f"schedule={schedule!r} is not ported (ROADMAP A3)")
+                f"the CUDA expand kernel bakes in the static doubling "
+                f"closure; schedule={schedule!r} runs on backend='torch'")
         return expand_degrees(adj, states, n=n)
     return expand_degrees_op
 

@@ -547,7 +547,7 @@ def solve_many(graphs: Sequence[Graph], *, cap: Optional[int] = None,
     with a padded W).  Every round packs all instances' current rungs
     into dispatches of up to ``lanes`` lanes; ``speculate > 1`` lets each
     instance take that many consecutive-k lanes per round.
-    ``schedule=None`` is ``doubling``, the port's only closure schedule.
+    ``schedule=None`` is ``doubling``.
 
     ``cap=None`` sizes one shared per-lane buffer for the whole suite with
     ``plan_capacity`` (the largest block's drop-free bound, clamped to

@@ -32,7 +32,8 @@ leaves the kernels' grids.
 ``shard_sweep`` is the sharded engine's local step (``core.shard``): every
 shard's rows in full ``block``-row chunks, the shards as the kernels' lane
 axis, with no narrow branch and no cross-chunk dedup, as the reference
-sweeps its shards.
+sweeps its shards.  A distributed rank's local step
+(``core.distributed``) is the same sweep with one lane.
 
 ``mode="bloom"`` is the paper's dedup: each level gets a fresh filter per
 lane (``bloom_make_filter``), every chunk's sorted-unique children are

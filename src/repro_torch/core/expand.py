@@ -28,12 +28,17 @@ def expand_block(adj: torch.Tensor, states: torch.Tensor,
     int32, reach (B, n, W)).  Degrees and reach are computed for the
     valid rows only and are 0 on invalid rows, which are infeasible
     whatever their degrees (the reference computes them for every row).
+    ``schedule="matmul"`` takes ``components.eliminated_degrees_matmul``,
+    whose reach is Q(S, v), as the reference's does.
     """
     b, w = states.shape
     rows = valid.nonzero().squeeze(1)
     degrees = torch.zeros((b, n), dtype=torch.int32, device=adj.device)
     reach = torch.zeros((b, n, w), dtype=torch.int32, device=adj.device)
-    if rows.numel():
+    if rows.numel() and schedule == "matmul":
+        degrees[rows], reach[rows] = components.eliminated_degrees_matmul(
+            adj, states[rows], n)
+    elif rows.numel():
         degrees[rows], reach[rows] = components.eliminated_degrees(
             adj, states[rows], n, schedule=schedule)
     in_s = bitset.unpack(states, n)                          # (B, n)

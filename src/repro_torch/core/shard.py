@@ -230,11 +230,18 @@ def decide_sharded_async(g: Graph, k: int, clique=(), *, shards: int,
     ``batch.plan_capacity(n, W, lanes=shards, block=block)``.  ``n_pad``
     embeds the graph in a larger vertex space (the multi-lane padding).
     Runs on ``device`` (default ``cuda``) with ``backend`` (default
-    ``cuda`` on a card, ``torch`` elsewhere).  A ``mesh`` of more than
-    one device is the distributed solver, which is not ported."""
+    ``cuda`` on a card, ``torch`` elsewhere).  With a ``mesh``
+    (``distributed.SolverMesh``) of more than one rank the rung runs on
+    the mesh through ``distributed.decide_launch`` instead, on the
+    mesh's device; ``cap`` is then each rank's capacity."""
     from . import batch as batch_lib
 
     shards = int(shards)
+    on_mesh = mesh is not None \
+        and getattr(mesh, "devices", None) is not None \
+        and mesh.devices.size > 1
+    if on_mesh and device is None:
+        device = mesh.device
     device = backend_lib.resolve_device(device)
     if backend is None:
         backend = backend_lib.default_backend(device)
@@ -254,13 +261,21 @@ def decide_sharded_async(g: Graph, k: int, clique=(), *, shards: int,
         res = [batch_lib.LaneResult(True, False, 0)]
         return engine_lib.DispatchHandle((), lambda host: res,
                                          _result=res, _done=True)
-    # a mesh: an object with a ``devices`` array, a sequence of devices or
-    # one device
-    if mesh is not None and np.asarray(getattr(mesh, "devices", mesh),
-                                       dtype=object).size > 1:
-        raise backend_lib.BackendCapabilityError(
-            "a sharded rung on a mesh of several devices is the "
-            "distributed solver, which is not ported (ROADMAP A11)")
+    if on_mesh:
+        if mode != "sort":
+            raise backend_lib.BackendCapabilityError(
+                "mesh-sharded decide performs exact owner dedup only "
+                "(mode='sort'); the Bloom filter shards exist on the "
+                "single-device sharded engine")
+        if cap is None:
+            cap = batch_lib.plan_capacity(n, block=block,
+                                          budget_bytes=budget_bytes)
+        from . import distributed as dist_lib
+        return dist_lib.decide_launch(
+            g, k, clique, mesh, cap_local=cap, block=block,
+            use_mmw=use_mmw, use_simplicial=use_simplicial,
+            schedule=schedule, backend=backend, donate_ratio=ratio,
+            tracker=tracker)
 
     n_static = n if n_pad is None else int(n_pad)
     if n_static < n:

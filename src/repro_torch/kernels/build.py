@@ -8,12 +8,20 @@ package) and of the flags, and loaded with ``ctypes``.  ``build_all``
 starts one ``nvcc`` per source at once.  A missing compiler or a failed
 build raises: nothing falls back to the plain PyTorch versions.
 
+A build holds an exclusive ``flock`` on ``<name>.lock`` in the build
+directory, so processes that start together (the distributed solver's
+ranks) run one ``nvcc`` per source between them: the others wait and
+load the library it wrote.  The lock goes with the process that holds
+it, so a killed build leaves none behind.
+
 ``check_operands``, ``require_cuda`` and ``check_launch`` are the
 wrappers' shared checks.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import pathlib
@@ -96,10 +104,24 @@ def _finish(name: str, target: pathlib.Path, job) -> str:
     return out
 
 
+@contextlib.contextmanager
+def _build_lock(name: str):
+    """Hold the inter-process build lock of kernel ``name``."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / f"{name}.lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build_all() -> dict:
     """Build every kernel source concurrently; returns name -> nvcc output
     (empty for libraries that were already built)."""
-    with _LOCK:
+    with _LOCK, contextlib.ExitStack() as locks:
+        for name in SOURCES:
+            locks.enter_context(_build_lock(name))
         jobs = {name: _start(name) for name in SOURCES}
         return {name: _finish(name, *jobs[name]) for name in SOURCES}
 
@@ -109,8 +131,9 @@ def library(name: str) -> ctypes.CDLL:
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
-            target, job = _start(name)
-            _finish(name, target, job)
+            with _build_lock(name):
+                target, job = _start(name)
+                _finish(name, target, job)
             lib = ctypes.CDLL(str(target))
             _LIBS[name] = lib
         return lib

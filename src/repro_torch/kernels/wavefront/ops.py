@@ -115,8 +115,8 @@ def wavefront_expand(adj, states, valid, k, allowed, *, n: int,
     global LAUNCHES
     if schedule != "doubling":
         raise BackendCapabilityError(
-            f"the CUDA wavefront kernel runs the static doubling closure; "
-            f"schedule={schedule!r} is not ported (ROADMAP A3)")
+            f"the CUDA wavefront kernel bakes in the static doubling "
+            f"closure; schedule={schedule!r} runs on backend='torch'")
     _check(adj, states, valid, k, allowed, n)
     if states.device.type == "cpu":
         return wavefront_ref(adj, states, valid, k, allowed, n=n,

@@ -8,6 +8,7 @@
     python -m repro_torch.launch.solve --graph myciel4 --batch 4
     python -m repro_torch.launch.solve --graph queen6_6 --shards 4
     python -m repro_torch.launch.solve --graph queen5_5 --heuristics 4
+    python -m repro_torch.launch.solve --graph queen6_6 --distributed
     python -m repro_torch.launch.solve --dimacs path/to/graph.gr
 
 Takes the flags of ``repro.launch.solve``.  ``--device`` defaults to
@@ -17,14 +18,31 @@ consecutive rungs per dispatch (speculative deepening, same results).
 ``--shards S`` splits each rung's frontier across S shards (owner-hash
 routing, work donation past ``--donate-ratio``; same results).
 ``--heuristics N`` runs N anytime bounds rounds, pinned by ``--seed``,
-before each block's ladder.  Flags this package does not port yet
-(``--distributed``, ``--devices`` and schedules other than ``doubling``)
-are rejected with a capability error before any work.
+before each block's ladder.  ``--schedule`` picks the closure schedule;
+the CUDA kernels run ``doubling`` only, the others run with ``--backend
+torch``.
+
+``--distributed`` runs ``core.distributed.solve_distributed`` with
+``cap_local = cap // D`` (``--cap`` defaults to 2^18 there) and work
+donation past ``--donate-ratio``.  ``--devices N`` starts N local ranks
+on ``--device`` (rank r on card ``r % cards``; ``gloo`` when ranks share
+a card or run on the CPU, ``nccl`` when each has its own); without it
+the world is what the environment gives (``torchrun``'s ``RANK``,
+``WORLD_SIZE``, ...), or one rank.  Rank 0 prints the result line.
+Unsupported configurations are rejected with a capability error before
+any work.
 """
 from __future__ import annotations
 
 import argparse
 import sys
+
+
+def _rank_solve(mesh, g, cap, kw):
+    """One rank of ``--distributed --devices N``."""
+    from repro_torch.core import distributed as dist_lib
+    return dist_lib.solve_distributed(g, mesh, cap_local=cap // mesh.size,
+                                      **kw)
 
 
 def main(argv=None):
@@ -70,10 +88,6 @@ def main(argv=None):
     from repro_torch.core import solver as solver_lib
 
     try:
-        if args.distributed or args.devices:
-            raise backend_lib.BackendCapabilityError(
-                "--distributed/--devices: the distributed solver is not "
-                "ported (ROADMAP A11)")
         device = backend_lib.resolve_device(args.device)
         backend = args.backend or backend_lib.default_backend(device)
         backend_lib.validate(backend, mode=args.mode,
@@ -96,16 +110,42 @@ def main(argv=None):
 
     print(f"[solve] {g.name}: n={g.n} m={g.n_edges} device={device} "
           f"backend={backend}", flush=True)
-    res = solver_lib.solve(
-        g, cap=args.cap, block=args.block, mode=args.mode,
-        use_mmw=args.mmw, backend=backend,
-        use_simplicial=args.simplicial, schedule=args.schedule,
-        use_clique=not args.no_clique, use_paths=not args.no_paths,
-        use_preprocess=not args.no_preprocess,
-        reconstruct=args.reconstruct, verbose=args.verbose,
-        engine=args.engine, lanes=args.batch, shards=args.shards,
-        donate_ratio=args.donate_ratio, heuristics=args.heuristics,
-        seed=args.seed, device=device)
+    if args.devices and not args.distributed:
+        print("[solve] --devices applies to --distributed only; ignoring "
+              "it", file=sys.stderr)
+    if args.distributed:
+        from repro_torch.core import distributed as dist_lib
+        if args.batch > 1:
+            print("[solve] --batch applies to the single-device solver "
+                  "only; ignoring it under --distributed", file=sys.stderr)
+        cap = args.cap if args.cap is not None else 1 << 18
+        kw = dict(block=args.block, use_mmw=args.mmw,
+                  use_simplicial=args.simplicial, schedule=args.schedule,
+                  backend=backend, use_clique=not args.no_clique,
+                  use_paths=not args.no_paths,
+                  use_preprocess=not args.no_preprocess,
+                  verbose=args.verbose, engine=args.engine)
+        if args.donate_ratio is not None:
+            kw["donate_ratio"] = args.donate_ratio
+        if args.devices:
+            res = dist_lib.launch(_rank_solve, args.devices, g, cap, kw,
+                                  device=device)[0]
+        else:
+            mesh = dist_lib.make_solver_mesh(device=args.device)
+            res = _rank_solve(mesh, g, cap, kw)
+            if mesh.rank != 0:
+                return 0
+    else:
+        res = solver_lib.solve(
+            g, cap=args.cap, block=args.block, mode=args.mode,
+            use_mmw=args.mmw, backend=backend,
+            use_simplicial=args.simplicial, schedule=args.schedule,
+            use_clique=not args.no_clique, use_paths=not args.no_paths,
+            use_preprocess=not args.no_preprocess,
+            reconstruct=args.reconstruct, verbose=args.verbose,
+            engine=args.engine, lanes=args.batch, shards=args.shards,
+            donate_ratio=args.donate_ratio, heuristics=args.heuristics,
+            seed=args.seed, device=device)
 
     print(f"[solve] treewidth={res.width} exact={res.exact} "
           f"lb={res.lb} ub={res.ub} states_expanded={res.expanded} "

@@ -6,6 +6,8 @@ Hashing needs no ``nvcc``; the build itself runs only where there is one
 """
 import re
 import shutil
+import subprocess
+import sys
 
 import pytest
 
@@ -63,3 +65,26 @@ def test_flags_are_part_of_the_name(monkeypatch):
     before = build._target("mmw")
     monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ("-G",))
     assert build._target("mmw") != before
+
+
+def test_build_lock_excludes_other_processes(tmp_path, monkeypatch):
+    """A build holds ``<name>.lock``: another process (a rank of the
+    distributed solver) waits for it instead of running nvcc too."""
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    probe = ("import fcntl, sys\n"
+             "f = open(sys.argv[1], 'w')\n"
+             "try:\n"
+             "    fcntl.flock(f, fcntl.LOCK_EX | fcntl.LOCK_NB)\n"
+             "except BlockingIOError:\n"
+             "    print('held')\n"
+             "else:\n"
+             "    print('free')\n")
+
+    def other_process():
+        return subprocess.run(
+            [sys.executable, "-c", probe, str(tmp_path / "mmw.lock")],
+            capture_output=True, text=True, timeout=60).stdout.strip()
+
+    with build._build_lock("mmw"):
+        assert other_process() == "held"
+    assert other_process() == "free"

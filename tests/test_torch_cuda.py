@@ -363,3 +363,19 @@ def test_scheduler_serves_two_requests_on_the_card(dev, mode):
     assert got == want
     assert got_events == want_events
     assert [r[0] for r in got] == [4, 10]
+
+
+def test_distributed_ranks_share_the_card(dev):
+    """Two ranks on the one card (gloo, CUDA tensors in the collectives)
+    give the CPU ranks' results, and the wavefront kernel launches in
+    both."""
+    import torch_dist_twins as twins
+    from repro_torch.core import distributed
+    kw = dict(cap_local=1 << 12, block=1 << 8)
+    names = ["petersen", "queen5_5"]
+    got = distributed.launch(twins.solve_rows_launched, 2, names,
+                             device="cuda", deadline_s=300, **kw)
+    want = twins.port(twins.solve_rows_launched, 2, names, **kw)
+    assert [rows for rows, _ in got] == [rows for rows, _ in want]
+    assert all(n > 0 for _, n in got), got
+    assert all(n == 0 for _, n in want), want

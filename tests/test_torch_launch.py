@@ -1,7 +1,8 @@
 """Port surface: unported and ported flags, the backend registry, the CLI
 and import hygiene.
 
-Unported flags must fail with ``BackendCapabilityError`` before any work;
+Flags a backend cannot run must fail with ``BackendCapabilityError``
+before any work;
 ported ones run and match the reference, ``budget_bytes="auto"`` among
 them (ROADMAP C1); the CLI prints the reference's result line;
 ``repro_torch`` and ``chip_smoke.py`` import neither ``jax`` nor
@@ -26,10 +27,17 @@ def _port_graph(g):
     return graph.Graph(g.n, g.adj.copy(), g.name)
 
 
+# the A3 schedules run on the torch backend (parity below); the cuda
+# backend keeps the static doubling closure and rejects them, keeping the
+# cases' ids
 @pytest.mark.parametrize("kw,item", [
-    (dict(schedule="linear"), "A3"), (dict(schedule="matmul"), "A3"),
+    pytest.param(dict(backend="cuda", schedule="linear"), "doubling",
+                 id="kw0-A3"),
+    pytest.param(dict(backend="cuda", schedule="matmul"), "doubling",
+                 id="kw1-A3"),
     (dict(backend="cuda", mode="bloom", m_bits=100), "multiple of 32"),
-    (dict(schedule="while"), "A3"),
+    pytest.param(dict(backend="cuda", schedule="while"), "doubling",
+                 id="kw3-A3"),
     (dict(lanes=0), "lanes must be"), (dict(shards=0), "shards must be"),
     (dict(backend="cuda", shards=2), "CUDA device"),
     (dict(backend="cuda"), "CUDA device")])
@@ -43,9 +51,12 @@ def test_unported_flags_fail_before_work(kw, item):
 
 @pytest.mark.parametrize("kw", [dict(mode="bloom"), dict(use_mmw=True),
                                 dict(use_simplicial=True), dict(shards=2),
-                                dict(heuristics=4, start_k=0)],
+                                dict(heuristics=4, start_k=0),
+                                dict(schedule="linear"),
+                                dict(schedule="matmul"),
+                                dict(schedule="while")],
                          ids=["bloom", "mmw", "simplicial", "shards",
-                              "heuristics"])
+                              "heuristics", "linear", "matmul", "while"])
 def test_ported_flags_run_and_match_reference(kw):
     g = oracle.make_graph("petersen")
     tr = telemetry.Tracker()
@@ -173,7 +184,7 @@ def test_import_hygiene_no_jax_no_repro():
         "repro_torch.serve.slots, repro_torch.serve.client, "
         "repro_torch.serve.twscheduler, repro_torch.launch.twserve, "
         "repro_torch.launch.twserved, repro_torch.workload, "
-        "repro_torch.workload.__main__\n"
+        "repro_torch.workload.__main__, repro_torch.core.distributed\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "print(json.dumps(bad))\n")

@@ -177,9 +177,14 @@ def test_shard_capability_checks():
         solver.solve(g, shards=0, device="cpu")
     with pytest.raises(backend.BackendCapabilityError, match="CUDA device"):
         solver.solve(g, shards=2, backend="cuda", device="cpu")
-    with pytest.raises(backend.BackendCapabilityError, match="A11"):
-        shard.decide_sharded(g, 3, (), shards=2, device="cpu",
-                             mesh=["cuda:0", "cuda:1"])
+    # a mesh of several ranks is the distributed solver, exact owner
+    # dedup only (its parity: tests/test_torch_distributed_ckpt.py)
+    mesh = type("Mesh", (), {"devices": np.empty(2, dtype=object),
+                             "device": torch.device("cpu")})()
+    with pytest.raises(backend.BackendCapabilityError,
+                       match="exact owner dedup only"):
+        shard.decide_sharded(g, 3, (), shards=2, device="cpu", mesh=mesh,
+                             mode="bloom")
     old = backend.BATCHED_BACKENDS
     backend.BATCHED_BACKENDS = ("torch",)
     try:
@@ -219,7 +224,10 @@ def test_cli_prints_the_reference_line(flags, kw):
 
 
 def test_cli_rejects_what_is_not_ported():
-    out = _cli("--graph", "petersen", "--device", "cpu", "--distributed")
-    assert out.returncode == 2 and "A11" in out.stderr
+    # --distributed runs (tests/test_torch_distributed_ckpt.py); the cuda
+    # backend on the CPU is rejected before any rank starts
+    out = _cli("--graph", "petersen", "--device", "cpu", "--distributed",
+               "--devices", "2", "--backend", "cuda")
+    assert out.returncode == 2 and "CUDA device" in out.stderr
     out = _cli("--graph", "petersen", "--device", "cpu", "--shards", "0")
     assert out.returncode == 2 and "shards must be" in out.stderr

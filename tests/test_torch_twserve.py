@@ -188,8 +188,10 @@ def test_service_start_k_and_forced_inexactness():
 
 
 def test_service_validates_configuration_at_construction():
+    # "while" runs on the torch backend since the closure schedules were
+    # ported; an unknown schedule is rejected
     with pytest.raises(backend_lib.BackendCapabilityError):
-        sched(PORT, lanes=2, schedule="while")
+        sched(PORT, lanes=2, schedule="nope")
     with pytest.raises(backend_lib.BackendCapabilityError):
         sched(PORT, lanes=2, backend="cuda")       # the CPU has no kernels
     with pytest.raises(backend_lib.BackendCapabilityError):
@@ -333,8 +335,10 @@ def test_twserve_compare_prints_the_reference_lines():
     assert "parity OK" in port[-1]
 
 
-def test_twserve_rejects_unported_schedules():
+def test_twserve_rejects_unported_schedules(capsys):
+    # the CUDA kernels keep the static doubling closure
     from repro_torch.launch import twserve
     assert twserve.main(["--graphs", "petersen", "--device", "cpu",
-                         "--schedule", "while"]) == 2
+                         "--schedule", "while", "--backend", "cuda"]) == 2
+    assert "does not implement schedule='while'" in capsys.readouterr().err
     assert twserve.main(["--graphs", "nope", "--device", "cpu"]) == 2

@@ -326,7 +326,11 @@ def test_metrics_op_over_the_wire():
 
 
 def test_cli_rejects_an_unported_pool_configuration(capsys):
+    # "while" runs on the torch backend; the CUDA kernels keep the static
+    # doubling closure, so the pool is rejected before it listens
     from repro_torch.launch import twserved
     assert twserved.main(["--port", "0", "--device", "cpu", "--schedule",
-                          "while"]) == 2
-    assert "unsupported pool configuration" in capsys.readouterr().err
+                          "while", "--backend", "cuda"]) == 2
+    err = capsys.readouterr().err
+    assert "unsupported pool configuration" in err
+    assert "does not implement schedule='while'" in err
