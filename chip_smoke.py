@@ -33,11 +33,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
   4. times: each kernel and its plain version at the main path's shapes
      (B=2048 states taken from real frontiers of queen6_6 and queen7_7,
      the wavefront kernel also at B=128, a ``SMALL_BLOCK`` chunk, and a
-     chunk's 2048*n sorted children for the Bloom kernel; the lane forms
-     on 8 lanes of queen7_7 at k=23..30 and their children in 8
-     filters): the kernel's device time per call by replaying a CUDA
-     graph of captured wrapper calls, and the time per wrapper call with
-     CUDA events, beside the least time the card could take;
+     chunk's 2048*n sorted children for the Bloom kernel, into empty
+     filters and into filters that already hold the level's second
+     chunk, with the Bloom kernel's scratch bytes; the lane forms on 8
+     lanes of queen7_7 at k=23..30 and their children in 8 filters): the
+     kernel's device time per call by replaying a CUDA graph of captured
+     wrapper calls, and the time per wrapper call with CUDA events,
+     beside the least time the card could take;
   5. split: one queen7_7 solve in the paper's configuration under
      ``torch.profiler``: host planning, the level loop, and the device
      time of each kernel;
@@ -539,7 +541,7 @@ def ptxas_rows(text):
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             mangled = m.group(1)
-            base = re.search(r"([a-z]+_kernel)", mangled)
+            base = re.search(r"\d([a-z][a-z_]*_kernel)", mangled)
             args = re.findall(r"L[ib](\d+)E", mangled)
             name = (base.group(1) if base else mangled) + (
                 f"<{','.join(args)}>" if args else "")
@@ -1619,7 +1621,9 @@ def phase_distributed(torch, graph, solver, distributed, ops, walls):
 
 def timing_inputs(torch, np, bitset, graph, preprocess, solver, batch,
                   name, k, block=2048):
-    """B=block states from the largest level of ``name`` at width k."""
+    """B=block states from the largest level of ``name`` at width k, and
+    as the last item (states, valid) of the level's second chunk (every
+    timed level has one)."""
     g = preprocess.preprocess(graph.REGISTRY[name]()).blocks[0].g
     plan = solver.plan_block(g, use_clique=True, use_paths=True,
                              start_k=None)
@@ -1628,15 +1632,15 @@ def timing_inputs(torch, np, bitset, graph, preprocess, solver, batch,
     res = solver.decide(gk, k, plan.clique, cap=cap, block=block,
                         keep_levels=True, engine="host")
     level = max(res.levels, key=len)
-    rows = level[:block]
-    states = np.zeros((block, bitset.n_words(g.n)), dtype=np.uint32)
-    states[:len(rows)] = rows
-    valid = np.arange(block) < len(rows)
-    dev = DEVICE
-    return (bitset.to_words(gk.packed(), dev), bitset.to_words(states, dev),
-            torch.from_numpy(valid).to(dev), k,
-            bitset.to_words(bitset.np_allowed(g.n, plan.clique), dev),
-            g.n, len(rows))
+    chunks = []
+    for rows in (level[:block], level[block:2 * block]):
+        states = np.zeros((block, bitset.n_words(g.n)), dtype=np.uint32)
+        states[:len(rows)] = rows
+        chunks.append((bitset.to_words(states, DEVICE), torch.from_numpy(
+            np.arange(block) < len(rows)).to(DEVICE)))
+    return (bitset.to_words(gk.packed(), DEVICE), *chunks[0], k,
+            bitset.to_words(bitset.np_allowed(g.n, plan.clique), DEVICE),
+            g.n, min(len(level), block), chunks[1])
 
 
 def bound(nbytes, ops):
@@ -1727,16 +1731,34 @@ def kernel_times(torch, fn, ref, reset=None):
     return tuple(times)
 
 
-class FreshFilters:
-    """Empty default-size filters handed out in turn, one per call, so
-    that every timed Bloom call finds the filter as a level's first chunk
-    does; ``reset`` empties them all and starts the turn again."""
+def scratch_bytes(torch, call, filt):
+    """Device bytes that ``call(filt)`` asks for and frees again within
+    the call (its scratch), by the caching allocator's counters of bytes
+    requested, before it rounds them up to its blocks: the peak during
+    the call less what is still held after it, its outputs kept alive."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = call(filt)
+    torch.cuda.synchronize()
+    stats = torch.cuda.memory_stats()
+    del out
+    return (stats["requested_bytes.all.peak"]
+            - stats["requested_bytes.all.current"])
 
-    def __init__(self, bl, count, lanes=None):
+
+class FreshFilters:
+    """Default-size filters handed out in turn, one per call, each as
+    ``source`` holds it, or empty without one, so that every timed Bloom
+    call finds the filter as a level's first chunk does (empty) or as a
+    later chunk does (``source``: the level's other chunk inserted);
+    ``reset`` restores them all and starts the turn again."""
+
+    def __init__(self, bl, count, lanes=None, source=None):
+        self.source = source
         self.filters = [bl.make_filter_words(M_BITS, device=DEVICE,
                                              lanes=lanes)
                         for _ in range(count)]
-        self.turn = 0
+        self.reset()
 
     def __call__(self):
         f = self.filters[self.turn % len(self.filters)]
@@ -1745,8 +1767,82 @@ class FreshFilters:
 
     def reset(self):
         for f in self.filters:
-            f.zero_()
+            if self.source is None:
+                f.zero_()
+            else:
+                f.copy_(self.source)
         self.turn = 0
+
+
+def sorted_children(dedup, wf, args, n):
+    """A chunk's children as the Bloom kernel gets them on the main path:
+    sorted, with their first-occurrence mask ([L,] B*n rows)."""
+    children, feas = wf.wavefront_expand(*args, n=n)
+    *lead, b, _, w = children.shape
+    skeys, svalid = dedup.sort_states(
+        children.reshape(*lead, b * n, w), feas.reshape(*lead, b * n))
+    return skeys, dedup.unique_mask(skeys, svalid)
+
+
+def time_bloom(torch, bloom, bl, skeys, keep, other, tag):
+    """The Bloom kernel on one chunk's sorted children (one lane, or a
+    lane axis) into empty default-size filters and into filters that
+    already hold ``other``, the sorted children of the level's second
+    chunk, with its scratch beside an owner array's int32 per filter bit
+    (the design before the bucketed one); returns the timing entry."""
+    lanes = skeys.shape[0] if skeys.dim() == 3 else None
+    warm = bl.make_filter_words(M_BITS, device=DEVICE, lanes=lanes)
+    bl.bloom_insert_ref(warm, *other, m_bits=M_BITS, k_hashes=K_HASHES)
+    times = {}
+    for label, source in (("fresh", None), ("warm", warm)):
+        start = bl.make_filter_words(M_BITS, device=DEVICE, lanes=lanes) \
+            if source is None else source
+        ok, _ = same(torch,
+                     bl.bloom_insert(start.clone(), skeys, keep,
+                                     m_bits=M_BITS, k_hashes=K_HASHES),
+                     bl.bloom_insert_ref(start.clone(), skeys, keep,
+                                         m_bits=M_BITS, k_hashes=K_HASHES))
+        check(ok, f"bloom kernel != plain version on {tag} children, "
+                  f"{label} filter")
+        filters = FreshFilters(bl, max(GRAPH_CALLS, 100 + WARMUP),
+                               lanes=lanes, source=source)
+        times[label] = kernel_times(
+            torch, lambda: bl.bloom_insert(filters(), skeys, keep,
+                                           m_bits=M_BITS, k_hashes=K_HASHES),
+            lambda: bl.bloom_insert_ref(filters(), skeys, keep,
+                                        m_bits=M_BITS, k_hashes=K_HASHES),
+            reset=filters.reset)
+        del filters
+    nl = lanes or 1
+    nbytes = ops = 0
+    for i in range(nl):
+        _, _, nb, op = bloom_bound(torch, bloom, skeys.reshape(
+            nl, *skeys.shape[-2:])[i], keep.reshape(nl, -1)[i], M_BITS,
+            K_HASHES)
+        nbytes, ops = nbytes + nb, ops + op
+    bms, by = bound(nbytes, ops)
+    rows = skeys.shape[-2]
+    planned = bl.ops.scratch_plan(nl, rows, M_BITS, K_HASHES).nbytes
+    scratch = scratch_bytes(torch, lambda f: bl.bloom_insert(
+        f, skeys, keep, m_bits=M_BITS, k_hashes=K_HASHES),
+        bl.make_filter_words(M_BITS, device=DEVICE, lanes=lanes))
+    check(scratch == planned,
+          f"bloom wrapper on {tag} children asked for {scratch} bytes of "
+          f"scratch, not the {planned} bytes that ops.scratch_plan sizes")
+    owner = 4 * nl * M_BITS
+    (dev, ms, plain), (wdev, wms, wplain) = times["fresh"], times["warm"]
+    log(f"time bloom {tag}: L={nl} x {rows} rows ({int(keep.sum())} kept; "
+        f"warm filter holds {int(other[1].sum())} more) "
+        f"W={skeys.shape[-1]} m_bits={M_BITS} k_hashes={K_HASHES}: device "
+        f"{dev:.4f} ms fresh / {wdev:.4f} ms warm, wrapper {ms:.4f} / "
+        f"{wms:.4f} ms, plain {plain:.4f} / {wplain:.4f} ms, bound "
+        f"{bms:.6f} ms by {by} ({nbytes} bytes, {ops} word ops); scratch "
+        f"{scratch} bytes asked for during a call, where the owner array "
+        f"of the design before it held {owner} bytes")
+    return dict(shape=tag, L=nl, B=rows, ms=dev, wrapper_ms=ms,
+                plain_ms=plain, bound_ms=bms, bound_by=by, warm_ms=wdev,
+                warm_wrapper_ms=wms, warm_plain_ms=wplain,
+                scratch_bytes=scratch)
 
 
 def time_wavefront(torch, bitset, components, wf, shape, k, args, n, live):
@@ -1786,7 +1882,7 @@ def phase_times(torch, np, bitset, graph, preprocess, solver, batch,
     adds the lane forms (``time_lanes``)."""
     rows = {name: [] for name in KERNELS}
     for shape, k in TIMING_SHAPES:
-        adj, states, valid, kk, allowed, n, live = timing_inputs(
+        adj, states, valid, kk, allowed, n, live, second = timing_inputs(
             torch, np, bitset, graph, preprocess, solver, batch, shape, k,
             block=max(TIMING_B))
         b, w = states.shape
@@ -1835,37 +1931,13 @@ def phase_times(torch, np, bitset, graph, preprocess, solver, batch,
                                    bound_by=by))
 
         # the Bloom kernel's main-path input: one chunk's sorted children
-        # and their first-occurrence mask, into an empty default-size
-        # filter (a fresh one for every call)
-        children, feas = wf.wavefront_expand(*args, n=n)
-        skeys, svalid = dedup.sort_states(children.reshape(b * n, w),
-                                          feas.reshape(b * n))
-        keep = dedup.unique_mask(skeys, svalid)
-        bl = kern["bloom"]
-        filt = bl.make_filter_words(M_BITS, device=DEVICE)
-        ok, _ = same(torch,
-                     bl.bloom_insert(filt.clone(), skeys, keep,
-                                     m_bits=M_BITS, k_hashes=K_HASHES),
-                     bl.bloom_insert_ref(filt.clone(), skeys, keep,
-                                         m_bits=M_BITS, k_hashes=K_HASHES))
-        check(ok, f"bloom kernel != plain version on {shape} children")
-        fresh = FreshFilters(bl, max(GRAPH_CALLS, 100 + WARMUP))
-        dev, ms, plain = kernel_times(
-            torch, lambda: bl.bloom_insert(fresh(), skeys, keep,
-                                           m_bits=M_BITS, k_hashes=K_HASHES),
-            lambda: bl.bloom_insert_ref(fresh(), skeys, keep,
-                                        m_bits=M_BITS, k_hashes=K_HASHES),
-            reset=fresh.reset)
-        del fresh
-        bms, by, nbytes, ops = bloom_bound(torch, bloom, skeys, keep, M_BITS,
-                                           K_HASHES)
-        log(f"time bloom {shape} k={k}: B={b * n} rows ({int(keep.sum())} "
-            f"kept) W={w} m_bits={M_BITS} k_hashes={K_HASHES}: device "
-            f"{dev:.4f} ms, wrapper {ms:.4f} ms, plain {plain:.4f} ms, bound "
-            f"{bms:.6f} ms by {by} ({nbytes} bytes, {ops} word ops)")
-        rows["bloom"].append(dict(shape=shape, B=b * n, ms=dev,
-                                  wrapper_ms=ms, plain_ms=plain,
-                                  bound_ms=bms, bound_by=by))
+        # and their first-occurrence mask, into a default-size filter
+        # that is empty or holds the level's second chunk (a fresh copy
+        # for every call)
+        skeys, keep = sorted_children(dedup, wf, args, n)
+        other = sorted_children(dedup, wf, (adj, *second, kk, allowed), n)
+        rows["bloom"].append(time_bloom(torch, bloom, kern["bloom"], skeys,
+                                        keep, other, f"{shape} k={k}"))
     if lanes:
         time_lanes(torch, np, bitset, graph, preprocess, solver, batch,
                    components, bloom, dedup, kern, rows)
@@ -1885,6 +1957,7 @@ def time_lanes(torch, np, bitset, graph, preprocess, solver, batch,
     n = ins[0][5]
     adj, states, valid, allowed = (torch.stack([x[i] for x in ins])
                                    for i in (0, 1, 2, 4))
+    second = [torch.stack([x[7][i] for x in ins]) for i in (0, 1)]
     kk = torch.tensor([x[3] for x in ins], dtype=torch.int32, device=DEVICE)
     live = [x[6] for x in ins]
     lanes, b, w = states.shape
@@ -1921,47 +1994,19 @@ def time_lanes(torch, np, bitset, graph, preprocess, solver, batch,
             shape=tag, L=lanes, B=b, flags=name, ms=dev, wrapper_ms=ms,
             plain_ms=plain, bound_ms=bms, bound_by=by))
 
-    children, feas = wf.wavefront_expand(*args, n=n)
-    skeys, svalid = dedup.sort_states(children.reshape(lanes, b * n, w),
-                                      feas.reshape(lanes, b * n))
-    keep = dedup.unique_mask(skeys, svalid)
-    bl = kern["bloom"]
-    filt = bl.make_filter_words(M_BITS, device=DEVICE, lanes=lanes)
-    ok, _ = same(torch,
-                 bl.bloom_insert(filt.clone(), skeys, keep, m_bits=M_BITS,
-                                 k_hashes=K_HASHES),
-                 bl.bloom_insert_ref(filt.clone(), skeys, keep,
-                                     m_bits=M_BITS, k_hashes=K_HASHES))
-    check(ok, f"lane bloom kernel != plain version on {tag} children")
-    fresh = FreshFilters(bl, max(GRAPH_CALLS, 100 + WARMUP), lanes=lanes)
-    dev, ms, plain = kernel_times(
-        torch, lambda: bl.bloom_insert(fresh(), skeys, keep, m_bits=M_BITS,
-                                       k_hashes=K_HASHES),
-        lambda: bl.bloom_insert_ref(fresh(), skeys, keep, m_bits=M_BITS,
-                                    k_hashes=K_HASHES),
-        reset=fresh.reset)
-    del fresh
-    nbytes = ops = 0
-    for i in range(lanes):
-        _, _, nb, op = bloom_bound(torch, bloom, skeys[i], keep[i], M_BITS,
-                                   K_HASHES)
-        nbytes, ops = nbytes + nb, ops + op
-    bms, by = bound(nbytes, ops)
-    log(f"time bloom lanes {tag}: L={lanes} x {b * n} rows "
-        f"({int(keep.sum())} kept) W={w} m_bits={M_BITS} "
-        f"k_hashes={K_HASHES}: device {dev:.4f} ms, wrapper {ms:.4f} ms, "
-        f"plain {plain:.4f} ms, bound {bms:.6f} ms by {by} ({nbytes} bytes, "
-        f"{ops} word ops)")
-    rows["bloom_lanes"].append(dict(shape=tag, L=lanes, B=b * n, ms=dev,
-                                    wrapper_ms=ms, plain_ms=plain,
-                                    bound_ms=bms, bound_by=by))
+    skeys, keep = sorted_children(dedup, wf, args, n)
+    other = sorted_children(dedup, wf, (adj, *second, kk, allowed), n)
+    rows["bloom_lanes"].append(time_bloom(torch, bloom, kern["bloom"],
+                                          skeys, keep, other,
+                                          f"lanes {tag}"))
 
 
 
 
 # device-side names of the port's kernels (the rest is PyTorch's work)
 PORT_KERNEL_NAMES = ("wavefront_kernel", "mmw_kernel", "expand_kernel",
-                     "claim_kernel", "resolve_kernel")
+                     "bloom_count_kernel", "bloom_scatter_kernel",
+                     "bloom_resolve_kernel")
 
 
 def _device_us(evt):
@@ -2203,6 +2248,9 @@ def main(argv=None):
         if name.startswith("wavefront"):
             entry["variants"] = [v for v in times[name][1:]
                                  if v["shape"] == main_shape["shape"]]
+        if name.startswith("bloom"):
+            entry.update({key: main_shape[key] for key in (
+                "warm_ms", "scratch_bytes")})
         kernels.append(entry)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)

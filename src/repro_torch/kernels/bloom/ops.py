@@ -17,15 +17,17 @@ filter, rows in order within each lane: the multi-lane engine's form.
 A CUDA tensor launches the kernel; a CPU tensor takes the plain version
 ``bloom_insert_ref``.  Nothing else falls back: a failed build or launch
 raises.  Both update the filter in place and return it.  ``LAUNCHES``
-counts wrapper calls that ran the kernel (two launches each: claim and
-resolve), ``LAUNCHES_BY_LANES`` the same calls by lane count L (1 for the
-single-lane form).
+counts wrapper calls that ran the kernel (a memset and three launches
+each: count, scatter and resolve), ``LAUNCHES_BY_LANES`` the same calls by
+lane count L (1 for the single-lane form).  The kernel's scratch
+(``scratch_plan``) is sized from L, B and ``k_hashes``, never from
+``m_bits``, and allocated per call.
 """
 from __future__ import annotations
 
 import collections
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -35,20 +37,49 @@ from repro_torch.kernels import build
 LAUNCHES = 0
 LAUNCHES_BY_LANES: collections.Counter = collections.Counter()
 
-THREADS = 256
-INT32_MAX = (1 << 31) - 1
-
-# (device, m_bits) -> the kernel's owner scratch, (lanes, m_bits) int32
-# for the most lanes a call has asked for, all INT32_MAX between calls
-# (the kernel's second launch resets what it claimed).  It is kept at full
-# size: 64 MiB a lane at the default 2^24 bits.
-_OWNER: dict = {}
+# buckets of a lane's claims at most: bloom.cu's kMaxBuckets
+BUCKET_LOG = 12
+MAX_BUCKETS = 1 << BUCKET_LOG
 
 _c = ctypes.c_void_p
 _i = ctypes.c_int
-# states, valid, w, n_rows, lanes, m_bits, k_hashes, filt, owner, was_new,
-# threads, stream
-_ARGTYPES = [_c, _c, _i, _i, _i, ctypes.c_uint, _i, _c, _c, _c, _i, _c]
+# states, valid, w, n_rows, lanes, m_bits, k_hashes, shift, buckets, filt,
+# header, rows, claims, was_new, stream
+_ARGTYPES = [_c, _c, _i, _i, _i, ctypes.c_uint, _i, _i, _i, _c, _c, _c, _c,
+             _c, _c]
+
+
+class ScratchPlan(NamedTuple):
+    """The kernel's geometry and scratch for one call.  Bucket b of a lane
+    holds the probe positions [b << shift, (b + 1) << shift); ``buckets``
+    of them cover m_bits.  The scratch is int32 words, in this order:
+    ``header_words`` (each lane's bucket counts, fills and offsets, room
+    for MAX_BUCKETS, and the length of its row list), ``row_words`` (each
+    lane's list of the rows that claim, a count of lost claims per row,
+    then a claim mask per 32 probes of every row, padded to 8 bytes) and
+    ``claim_words`` (an 8-byte (position, row) slot per probe of every
+    row)."""
+    shift: int
+    buckets: int
+    header_words: int
+    row_words: int
+    claim_words: int
+
+    @property
+    def nbytes(self) -> int:
+        return 4 * (self.header_words + self.row_words + self.claim_words)
+
+
+def scratch_plan(lanes: int, rows: int, m_bits: int,
+                 k_hashes: int) -> ScratchPlan:
+    """The bucket geometry for ``m_bits`` and the scratch of a call with
+    ``lanes`` lanes of ``rows`` rows probed ``k_hashes`` times; the
+    scratch's size depends on lanes, rows and k_hashes only."""
+    shift = max(0, (m_bits - 1).bit_length() - BUCKET_LOG)
+    header = lanes * (3 * MAX_BUCKETS + 1)
+    listed = lanes * rows * (2 + -(-k_hashes // 32))
+    return ScratchPlan(shift, -(-m_bits >> shift), header + header % 2,
+                       listed + listed % 2, 2 * lanes * rows * k_hashes)
 
 
 def make_filter_words(m_bits: int, device=None,
@@ -111,22 +142,13 @@ def _lib():
     return lib
 
 
-def _owner(device, m_bits: int, lanes: int) -> torch.Tensor:
-    key = (device, m_bits)
-    if key not in _OWNER or _OWNER[key].shape[0] < lanes:
-        _OWNER.pop(key, None)
-        _OWNER[key] = torch.full((lanes, m_bits), INT32_MAX,
-                                 dtype=torch.int32, device=device)
-    return _OWNER[key][:lanes]
-
-
 def bloom_insert(filter_words, states, valid, *, m_bits: int,
                  k_hashes: int = bloom.DEFAULT_K):
     """Insert the valid rows of states (B, W) int32 into the packed filter
     in row order.  Returns (was_new (B,) bool, filter_words), the filter
     updated in place.  With a lane axis (filter (L, m_bits / 32), states
     (L, B, W), valid (L, B)) every lane goes into its own filter in the
-    same two launches."""
+    same launches."""
     global LAUNCHES
     lanes = filter_words.dim() == 2
     lead = tuple(filter_words.shape[:1]) if lanes else ()
@@ -153,12 +175,17 @@ def bloom_insert(filter_words, states, valid, *, m_bits: int,
                           device=states.device)
     if b == 0 or nl == 0:
         return was_new, filter_words
-    owner = _owner(states.device, m_bits, nl)
+    plan = scratch_plan(nl, b, m_bits, k_hashes)
+    scratch = torch.empty((plan.nbytes // 4,), dtype=torch.int32,
+                          device=states.device)
+    header = scratch.data_ptr()
+    rows = header + 4 * plan.header_words
     with torch.cuda.device(states.device):
         err = _lib().bloom_launch(
             states.data_ptr(), valid.data_ptr(), w, b, nl, m_bits, k_hashes,
-            filter_words.data_ptr(), owner.data_ptr(), was_new.data_ptr(),
-            THREADS, torch.cuda.current_stream().cuda_stream)
+            plan.shift, plan.buckets, filter_words.data_ptr(), header, rows,
+            rows + 4 * plan.row_words, was_new.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
     build.check_launch("bloom", err,
                        f"W={w}, B={b}, L={nl}, m_bits={m_bits}")
     LAUNCHES += 1

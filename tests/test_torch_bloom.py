@@ -17,6 +17,9 @@ python integers, while ``probe_indices`` and the Pallas kernel wrap it at
 it.  The CUDA kernel's own test is in
 ``test_torch_cuda.py``.
 """
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -192,3 +195,69 @@ def test_packed_filter_surface():
     before = kernel_mod.ops.LAUNCHES
     _row_order(np.zeros(32, np.uint32), states, valid, 1 << 10, 3)
     assert kernel_mod.ops.LAUNCHES == before
+
+
+@pytest.mark.parametrize("m_bits", [64, 1 << 14])
+def test_lane_form_matches_vmapped_pallas_kernel_in_interpret_mode(m_bits):
+    """The lane form (one filter per lane, rows in order within each lane)
+    against the reference's Pallas op under ``jax.vmap``, as
+    ``repro/core/shard.py`` calls it per shard: unequal valid counts, a
+    lane with no valid row, a half-full filter, and the filters carried
+    to a second batch."""
+    from repro.core import backend as ref_backend
+    query_insert = functools.partial(
+        ref_backend.get_op("bloom_query_insert", "pallas"), m_bits=m_bits,
+        k_hashes=17)
+    rng = np.random.RandomState(m_bits)
+    lanes, b = 3, 10
+    filt = _words(rng, lanes, m_bits // 32)
+    filt[0] = 0
+    for _ in range(2):
+        states = np.stack([_case(b, 2, seed=int(rng.randint(1 << 30)))[0]
+                           for _ in range(lanes)])
+        valid = np.arange(b)[None] % np.array([[1], [1], [3]]) == 0
+        valid[1] = False
+        want_new, want_f = jax.vmap(query_insert)(
+            jnp.asarray(filt), jnp.asarray(states), jnp.asarray(valid))
+        fw = bitset.to_words(filt, "cpu")
+        got_new, got_f = kernel_mod.bloom_insert(
+            fw, bitset.to_words(states, "cpu"), torch.from_numpy(valid),
+            m_bits=m_bits, k_hashes=17)
+        np.testing.assert_array_equal(got_new.numpy(),
+                                      np.asarray(want_new).astype(bool))
+        np.testing.assert_array_equal(bitset.from_words(got_f),
+                                      np.asarray(want_f))
+        assert not got_new[1].any()
+        filt = np.asarray(want_f)
+
+
+def test_scratch_is_sized_from_the_call_shapes_not_m_bits():
+    """The CUDA kernel's scratch (``ops.scratch_plan``) holds a slot per
+    probe, a list entry, a lost-claim count and claim masks per row and
+    three counters per bucket: the same bytes for every m_bits, and at
+    the lane engine's Bloom shape (8 lanes of 2048 * 49 children, 17
+    probes) far below the int32 per filter bit of 2^24-bit filters that
+    an owner array would take (512 MiB)."""
+    ops = kernel_mod.ops
+    for lanes, rows, k in [(1, 1, 1), (3, 300, 33), (8, 2048 * 49, 17)]:
+        sizes = set()
+        for m_bits in (64, 96, 3200, 1 << 12, (1 << 12) + 32, 1 << 13,
+                       (1 << 13) + 32, 1 << 24, (1 << 25) + 32,
+                       (1 << 32) - 32):
+            plan = ops.scratch_plan(lanes, rows, m_bits, k)
+            assert 1 <= plan.buckets <= ops.MAX_BUCKETS
+            assert (plan.buckets - 1) << plan.shift < m_bits \
+                <= plan.buckets << plan.shift
+            sizes.add(plan.nbytes)
+        header = lanes * (3 * ops.MAX_BUCKETS + 1)
+        listed = lanes * rows * (2 + -(-k // 32))
+        assert sizes == {8 * lanes * rows * k + 4 * (
+            header + header % 2 + listed + listed % 2)}
+    lane_shape = ops.scratch_plan(8, 2048 * 49, 1 << 24, 17).nbytes
+    assert 4 * lane_shape < 8 * 4 * (1 << 24)
+    assert ops.scratch_plan(1, 2048, 1 << 24, 17).shift == 12
+    # the most buckets of one position, then the first buckets of two
+    assert (ops.scratch_plan(1, 1, 1 << 12, 1).shift,
+            ops.scratch_plan(1, 1, 1 << 12, 1).buckets) == (0, 4096)
+    assert (ops.scratch_plan(1, 1, (1 << 12) + 32, 1).shift,
+            ops.scratch_plan(1, 1, (1 << 12) + 32, 1).buckets) == (1, 2064)

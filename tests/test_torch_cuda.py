@@ -250,6 +250,97 @@ def test_lane_bloom_kernel_matches_plain_version(dev, m_bits, k):
             assert torch.equal(got[1], want[1]), (lanes, b)
 
 
+# the bucket geometry's edges (ops.scratch_plan): a 64-bit filter (one
+# position a bucket, most buckets past the 32 claims a warp settles in
+# registers), a size that is not a power of two, 2^12 (the most buckets
+# of one position) and one word past it (the first size whose buckets
+# hold 2 positions, the last of them partly empty), 2^13 and the sizes
+# one word past a power of two (buckets of 2, 4 and 8 positions), the
+# default (buckets of 4096 positions, four resolve windows each) and
+# buckets of 16 windows (m_bits > 2^25)
+REDESIGN_M_BITS = [64, 3200, 1 << 12, (1 << 12) + 32, 1 << 13,
+                   (1 << 13) + 32, (1 << 14) + 32, 1 << 24, (1 << 25) + 32]
+
+
+def _redesign_batches(rng, lanes, b):
+    """(states (L, B, 2), valid (L, B)): valid rows interleaved with
+    invalid ones at a different stride in each lane (lane 1 has none),
+    duplicates; then one row repeated across every lane's whole batch."""
+    states = rng.randint(0, 2**32, size=(lanes, b, 2),
+                         dtype=np.uint64).astype(np.uint32)
+    states[:, 1::3] = states[:, ::3][:, :states[:, 1::3].shape[1]]
+    stride = np.arange(lanes)[:, None] + 2
+    valid = (np.arange(b)[None] % stride == 0) | (rng.rand(lanes, b) < 0.1)
+    if lanes > 1:
+        valid[1] = False
+    yield states, valid
+    yield np.broadcast_to(states[:1, :1], states.shape).copy(), \
+        np.ones((lanes, b), dtype=bool)
+
+
+@pytest.mark.parametrize("k", [1, 17, 33, 64])
+@pytest.mark.parametrize("m_bits", REDESIGN_M_BITS)
+def test_bloom_kernel_bucket_edges(dev, m_bits, k):
+    """Bit for bit against bloom_insert_ref in was_new and every filter
+    word: L in (1, 3, 8), an empty and a half-full filter carried from
+    batch to batch, interleaved valid rows, one repeated row, and a batch
+    of 2048 * 49 rows per lane."""
+    rng = np.random.RandomState(m_bits % 1009 + k)
+    for lanes in LANES:
+        half = rng.randint(0, 2**32, size=(lanes, m_bits // 32),
+                           dtype=np.uint64).astype(np.uint32)
+        for filt in (bloom_kernel.make_filter_words(m_bits, device=dev,
+                                                    lanes=lanes),
+                     bitset.to_words(half, dev)):
+            batches = list(_redesign_batches(rng, lanes, 300))
+            if lanes == 8:
+                batches += list(_redesign_batches(rng, lanes, 2048 * 49))[:1]
+            for states, valid in batches:
+                s = bitset.to_words(states, dev)
+                v = torch.from_numpy(valid).to(dev)
+                want = bloom_kernel.bloom_insert_ref(filt.clone(), s, v,
+                                                     m_bits=m_bits,
+                                                     k_hashes=k)
+                got = bloom_kernel.bloom_insert(filt, s, v, m_bits=m_bits,
+                                                k_hashes=k)
+                assert torch.equal(got[0], want[0]), (lanes, s.shape)
+                assert torch.equal(got[1], want[1]), (lanes, s.shape)
+                if lanes > 1 and not valid[1].any():
+                    assert not got[0][1].any()
+
+
+def test_bloom_kernel_records_in_a_cuda_graph(dev):
+    """One call captured in a CUDA graph (the default capture mode fails on
+    any host read) and replayed onto a restored filter, one lane and 8."""
+    rng = np.random.RandomState(5)
+    for lanes in (None, 8):
+        lead = () if lanes is None else (lanes,)
+        start = bloom_kernel.make_filter_words(1 << 24, device=dev,
+                                               lanes=lanes)
+        s = bitset.to_words(rng.randint(
+            0, 2**32, size=lead + (4096, 2), dtype=np.uint64).astype(
+                np.uint32), dev)
+        v = torch.from_numpy(rng.rand(*lead, 4096) < 0.5).to(dev)
+        want = bloom_kernel.bloom_insert_ref(start.clone(), s, v,
+                                             m_bits=1 << 24, k_hashes=17)
+        filt = start.clone()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            bloom_kernel.bloom_insert(filt, s, v, m_bits=1 << 24,
+                                      k_hashes=17)
+        torch.cuda.current_stream().wait_stream(side)
+        graph_ = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph_):
+            was_new, _ = bloom_kernel.bloom_insert(filt, s, v,
+                                                   m_bits=1 << 24,
+                                                   k_hashes=17)
+        filt.copy_(start)
+        graph_.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(was_new, want[0]) and torch.equal(filt, want[1])
+
+
 def test_lane_dispatch_launches_once_per_chunk_of_all_lanes(dev,
                                                             monkeypatch):
     """A dispatch of L lanes launches the wavefront kernel max_l chunks_l
