@@ -558,6 +558,13 @@ def ptxas_rows(text):
     return rows
 
 
+def warps_by_registers(regs):
+    """Warps an SM can hold at ``regs`` registers a thread: 65 536
+    registers, allocated 256 at a time per warp, at most 64 warps."""
+    per_warp = -(-regs * 32 // 256) * 256
+    return min(64, 65536 // per_warp)
+
+
 def phase_device(build):
     line = smi_line()
     log(f"device: {line}")
@@ -568,8 +575,27 @@ def phase_device(build):
     for name, text in reports.items():
         for kernel, regs, stack, spill in ptxas_rows(text):
             log(f"  ptxas {name}: {kernel}: {regs} registers, {stack} bytes "
-                f"stack, {spill} bytes spilled")
-    return line
+                f"stack, {spill} bytes spilled; registers allow "
+                f"{warps_by_registers(regs)} warps per SM")
+    return line, reports
+
+
+def log_occupancy(wf, reports):
+    """Each wavefront instantiation's registers and spills (ptxas, from
+    this run's build) and the warps per SM that the launch keeps resident
+    (the occupancy the kernel reads to size its grid)."""
+    ptx = {kernel: (regs, spill) for kernel, regs, _stack, spill
+           in ptxas_rows(reports.get("wavefront", ""))}
+    for w in range(1, wf.ops._lib().wavefront_max_words() + 1):
+        for use_mmw, use_simp in WAVEFRONT_FLAGS:
+            occ = wf.ops.occupancy(w, use_mmw, use_simp)
+            regs, spill = ptx.get(
+                f"wavefront_kernel<{w},{int(use_mmw)},{int(use_simp)}>",
+                ("not built in this run", "not built in this run"))
+            log(f"occupancy wavefront_kernel<{w},{int(use_mmw)},"
+                f"{int(use_simp)}>: {regs} registers, {spill} bytes spilled;"
+                f" {occ['blocks_per_sm']} blocks of {occ['threads']} threads"
+                f" = {occ['warps_per_sm']} warps per SM on {occ['sms']} SMs")
 
 
 def random_inputs(torch, np, bitset, graph, n, b, seed, device):
@@ -881,6 +907,7 @@ def reset_counts(ops):
     ops["wavefront"].LAUNCHES_BY_B.clear()
     ops["wavefront"].LAUNCHES_BY_LANES.clear()
     ops["wavefront"].LAUNCHES_BY_FLAGS.clear()
+    ops["wavefront"].LAUNCHES_BY_LANES_FLAGS.clear()
     ops["bloom"].LAUNCHES_BY_LANES.clear()
 
 
@@ -897,7 +924,24 @@ def widths(ops):
                        reverse=True))
 
 
-def read_counts(ops):
+# path -> the wavefront kernel's launches by lane count and rules
+LANES_FLAGS = {}
+
+
+def lanes_flags(counter):
+    """``LAUNCHES_BY_LANES_FLAGS`` as "L=<lanes> <rules>" -> launches."""
+    return {f"L={lanes} {flag_name(mmw, simp)}": count
+            for (lanes, mmw, simp), count in sorted(counter.items())}
+
+
+def read_counts(ops, path=None):
+    """Every kernel's launches; with a path, also records and logs the
+    wavefront kernel's launches by lane count and rules for it."""
+    if path is not None:
+        LANES_FLAGS[path] = lanes_flags(
+            ops["wavefront"].LAUNCHES_BY_LANES_FLAGS)
+        log(f"path [{path}]: wavefront launches by lanes and rules "
+            f"{LANES_FLAGS[path]}")
     return {name: mod.LAUNCHES for name, mod in ops.items()}
 
 
@@ -935,7 +979,7 @@ def phase_main_paths(torch, graph, solver, golden, ops):
                 f"exact={res.exact} lb={res.lb} ub={res.ub} "
                 f"expanded={res.expanded} launches={launched} "
                 f"wall={wall:.3f} s states/s={res.expanded / wall:.0f}")
-        counts[path] = read_counts(ops)
+        counts[path] = read_counts(ops, path)
         by_width[path] = widths(ops)
         for kernel in needed:
             check(counts[path][kernel] > 0,
@@ -955,7 +999,7 @@ def phase_main_paths(torch, graph, solver, golden, ops):
               f"{res.width}, JAX {EXPECTED[name]['width']}")
         log(f"reconstruct {name}: width={res.width} order verified "
             f"(replays at {replay})")
-    counts["reconstruct"] = read_counts(ops)
+    counts["reconstruct"] = read_counts(ops, "reconstruct")
     by_width["reconstruct"] = widths(ops)
     check(counts["reconstruct"]["wavefront"] > 0,
           "reconstruction never launched the wavefront kernel")
@@ -988,7 +1032,7 @@ def phase_lanes(torch, graph, solver, batch, golden, ops):
             log(f"solve [{path}] {name}: treewidth={res.width} "
                 f"exact={res.exact} expanded={res.expanded} "
                 f"wall={wall:.3f} s")
-        counts[path] = read_counts(ops)
+        counts[path] = read_counts(ops, path)
         by_lanes[path] = dict(sorted(
             ops["wavefront"].LAUNCHES_BY_LANES.items()))
 
@@ -999,7 +1043,7 @@ def phase_lanes(torch, graph, solver, batch, golden, ops):
         results = batch.solve_many(gs, lanes=SUITE_LANES, **kw)
         torch.cuda.synchronize()
         walls[many] = time.perf_counter() - t0
-        counts[many] = read_counts(ops)
+        counts[many] = read_counts(ops, many)
         by_lanes[many] = dict(sorted(
             ops["wavefront"].LAUNCHES_BY_LANES.items()))
         for name, res in zip(SUITE, results):
@@ -1062,7 +1106,7 @@ def phase_shards(torch, graph, solver, telemetry, golden, ops, walls):
             log(f"solve [{path}] {name}: treewidth={res.width} "
                 f"exact={res.exact} expanded={res.expanded} wall={wall:.3f} "
                 f"s (shards=1: {walls[(config, name)]:.3f} s)")
-        counts[path] = read_counts(ops)
+        counts[path] = read_counts(ops, path)
         by_lanes[path] = by_lanes_of(ops)
         stats[path] = shard_stats(tr)
         for kernel in needed:
@@ -1081,7 +1125,7 @@ def phase_shards(torch, graph, solver, telemetry, golden, ops, walls):
     res = solver.solve(graph.REGISTRY[name](), shards=SHARDS,
                        donate_ratio=ratio, tracker=tr)
     check_solve(res, path, EXPECTED[name], golden)
-    counts[path], by_lanes[path] = read_counts(ops), by_lanes_of(ops)
+    counts[path], by_lanes[path] = read_counts(ops, path), by_lanes_of(ops)
     stats[path] = shard_stats(tr)
     check(stats[path]["shard_donations"] > 0
           and stats[path]["shard_donated_rows"] > 0,
@@ -1099,7 +1143,7 @@ def phase_shards(torch, graph, solver, telemetry, golden, ops, walls):
     replay = solver.order_width(g, res.order)
     check(replay <= res.width, f"{path}: order replays at {replay}, width "
                                f"{res.width}")
-    counts[path], by_lanes[path] = read_counts(ops), by_lanes_of(ops)
+    counts[path], by_lanes[path] = read_counts(ops, path), by_lanes_of(ops)
     check(by_lanes[path]["wavefront"].get(s, 0) > 0
           and by_lanes[path]["wavefront"].get(1, 0) > 0,
           f"path [{path}]: wavefront launches by lane count "
@@ -1200,7 +1244,7 @@ def phase_heuristics(torch, np, graph, solver, bounds_engine, telemetry,
             f"exact={res.exact} lb={res.lb} ub={res.ub} "
             f"expanded={res.expanded} wall={wall:.3f} s (defaults: "
             f"{walls[('defaults', name)]:.3f} s)")
-    counts = read_counts(ops)
+    counts = read_counts(ops, path)
     check(counts["wavefront"] > 0,
           f"path [{path}]: the wavefront kernel never launched")
     log(f"path [{path}]: launches {counts}")
@@ -1321,7 +1365,7 @@ def phase_serve(torch, np, graph, twserved, client_mod, bounds_engine,
                     f"expanded={res['expanded']} rounds="
                     f"{_events[-1]['rounds']}")
             path = f"serve {sub}"
-            counts[path] = read_counts(ops)
+            counts[path] = read_counts(ops, path)
             by_lanes[path] = by_lanes_of(ops)
             flags = dict(ops["wavefront"].LAUNCHES_BY_FLAGS)
             check(counts[path]["wavefront"] > 0
@@ -1350,7 +1394,8 @@ def phase_serve(torch, np, graph, twserved, client_mod, bounds_engine,
         rid = c.submit(g.relabel(perm))
         events = list(c.stream(rid))
         res = c.result(rid)
-        counts[path] = dict(read_counts(ops), sweep=bounds_engine.LAUNCHES)
+        counts[path] = dict(read_counts(ops, path),
+                            sweep=bounds_engine.LAUNCHES)
         check(events and all(e.get("cached") for e in events),
               f"path [{path}]: not answered from the cache: {events}")
         check(not any(counts[path].values()),
@@ -1369,7 +1414,7 @@ def phase_serve(torch, np, graph, twserved, client_mod, bounds_engine,
         res = got[name][1]
         check_served(res, f"{path} {name}", name, EXPECTED_SERVE[name],
                      golden)
-        counts[path], by_lanes[path] = read_counts(ops), by_lanes_of(ops)
+        counts[path], by_lanes[path] = read_counts(ops, path), by_lanes_of(ops)
         check(counts[path]["wavefront"] > 0
               and set(by_lanes[path]["wavefront"]) == {k},
               f"path [{path}]: wavefront launches by lane count "
@@ -1385,7 +1430,8 @@ def phase_serve(torch, np, graph, twserved, client_mod, bounds_engine,
         bounds_engine.LAUNCHES = 0
         got, wall = serve_stream(c, [name], **knobs)
         res = got[name][1]
-        counts[path] = dict(read_counts(ops), sweep=bounds_engine.LAUNCHES)
+        counts[path] = dict(read_counts(ops, path),
+                            sweep=bounds_engine.LAUNCHES)
         check({key: res[key] for key in ("lb", "ub", "exact")}
               == EXPECTED_SERVE_HEUR,
               f"path [{path}] {name}: {res} != JAX {EXPECTED_SERVE_HEUR}")
@@ -1440,16 +1486,19 @@ def solve_row(res):
 
 
 def kernel_counts():
-    """This process's launch counts of every kernel."""
+    """This process's launch counts of every kernel, and the wavefront
+    kernel's by lane count and rules."""
     from repro_torch.kernels import bloom, expand, mmw, wavefront
     return {"wavefront": wavefront.ops.LAUNCHES, "mmw": mmw.ops.LAUNCHES,
-            "bloom": bloom.ops.LAUNCHES, "expand": expand.ops.LAUNCHES}
+            "bloom": bloom.ops.LAUNCHES, "expand": expand.ops.LAUNCHES,
+            "lanes_flags": lanes_flags(wavefront.ops.LAUNCHES_BY_LANES_FLAGS)}
 
 
 def reset_kernel_counts():
     from repro_torch.kernels import bloom, expand, mmw, wavefront
     for mod in (bloom, expand, mmw, wavefront):
         mod.ops.LAUNCHES = 0
+    wavefront.ops.LAUNCHES_BY_LANES_FLAGS.clear()
 
 
 def dist_rank(mesh):
@@ -1516,6 +1565,18 @@ def dist_rank(mesh):
     return out
 
 
+def rank_lanes_flags(path, per_rank):
+    """Records and logs the wavefront launches by lane count and rules of
+    ``path``, summed over the ranks' ``launches``."""
+    total = {}
+    for x in per_rank:
+        for key, count in x["launches"]["lanes_flags"].items():
+            total[key] = total.get(key, 0) + count
+    LANES_FLAGS[path] = total
+    log(f"path [{path}]: wavefront launches by lanes and rules, all ranks "
+        f"{total}")
+
+
 def phase_distributed(torch, graph, solver, distributed, ops, walls):
     """The distributed path: queen6_6 on one rank over NCCL in this
     process, the schedules on the card, then DIST_RANKS ranks over gloo
@@ -1552,7 +1613,7 @@ def phase_distributed(torch, graph, solver, distributed, ops, walls):
     finally:
         dist.destroy_process_group()
     path = f"distributed D=1 nccl {DIST_SINGLE}"
-    counts[path] = read_counts(ops)
+    counts[path] = read_counts(ops, path)
     check(solve_row(res) == EXPECTED_DIST_SINGLE,
           f"{path}: {solve_row(res)} != JAX {EXPECTED_DIST_SINGLE}")
     check(counts[path]["wavefront"] > 0,
@@ -1573,9 +1634,10 @@ def phase_distributed(torch, graph, solver, distributed, ops, walls):
         check(all(row == want for row in rows),
               f"distributed {label}: {rows} != JAX {want}")
         launched = [r["paths"][label]["launches"]["wavefront"] for r in ranks]
-        counts[f"distributed D={DIST_RANKS} {label}"] = {
-            k: sum(r["paths"][label]["launches"][k] for r in ranks)
-            for k in ops}
+        path = f"distributed D={DIST_RANKS} {label}"
+        counts[path] = {k: sum(r["paths"][label]["launches"][k]
+                               for r in ranks) for k in ops}
+        rank_lanes_flags(path, [r["paths"][label] for r in ranks])
         if label.split()[0] in ("queen6_6", "queen7_7"):
             check(all(n > 0 for n in launched),
                   f"distributed {label}: wavefront launches by rank "
@@ -1604,6 +1666,7 @@ def phase_distributed(torch, graph, solver, distributed, ops, walls):
           f"restart: ranks disagree {rs}")
     counts[f"distributed D={DIST_RANKS} restart"] = {
         k: sum(x["launches"][k] for x in rs) for k in ops}
+    rank_lanes_flags(f"distributed D={DIST_RANKS} restart", rs)
     log(f"restart {DIST_RESTART['name']} k={DIST_RESTART['k']}: {got}")
 
     mr = [r["mesh_rung"] for r in ranks]
@@ -1612,6 +1675,7 @@ def phase_distributed(torch, graph, solver, distributed, ops, walls):
           f"{EXPECTED_MESH_RUNG}")
     counts[f"distributed D={DIST_RANKS} mesh rung"] = {
         k: sum(x["launches"][k] for x in mr) for k in ops}
+    rank_lanes_flags(f"distributed D={DIST_RANKS} mesh rung", mr)
     log(f"mesh rung {MESH_RUNG['name']} k={MESH_RUNG['ks']}: "
         f"{mr[0]['results']}")
     for path, c in counts.items():
@@ -1876,10 +1940,12 @@ def time_wavefront(torch, bitset, components, wf, shape, k, args, n, live):
 
 
 def phase_times(torch, np, bitset, graph, preprocess, solver, batch,
-                components, bloom, dedup, kern, lanes=True):
+                components, bloom, dedup, kern, reports, lanes=True):
     """Returns kernel -> timing entries; the wavefront kernel's first
     entry is the main one (no flags, B=2048, the first shape).  ``lanes``
-    adds the lane forms (``time_lanes``)."""
+    adds the lane forms (``time_lanes``).  Logs the wavefront kernel's
+    occupancy first."""
+    log_occupancy(kern["wavefront"], reports)
     rows = {name: [] for name in KERNELS}
     for shape, k in TIMING_SHAPES:
         adj, states, valid, kk, allowed, n, live, second = timing_inputs(
@@ -1944,26 +2010,34 @@ def phase_times(torch, np, bitset, graph, preprocess, solver, batch,
     return rows
 
 
+def lane_timing_inputs(torch, np, bitset, graph, preprocess, solver, batch):
+    """The lane forms' timing inputs: SUITE_LANES lanes of TIMING_LANES'
+    instance, lane i at rung TIMING_LANES[1][i], each with the first 2048
+    states of its largest level.  Returns (adj, states, valid, k,
+    allowed), n, the live rows per lane, the (states, valid) of each
+    lane's second chunk, and a tag."""
+    shape, ks = TIMING_LANES
+    ins = [timing_inputs(torch, np, bitset, graph, preprocess, solver,
+                         batch, shape, k, block=max(TIMING_B)) for k in ks]
+    adj, states, valid, allowed = (torch.stack([x[i] for x in ins])
+                                   for i in (0, 1, 2, 4))
+    second = [torch.stack([x[7][i] for x in ins]) for i in (0, 1)]
+    kk = torch.tensor([x[3] for x in ins], dtype=torch.int32, device=DEVICE)
+    return ((adj, states, valid, kk, allowed), ins[0][5],
+            [x[6] for x in ins], second, f"{shape} k={ks[0]}..{ks[-1]}")
+
+
 def time_lanes(torch, np, bitset, graph, preprocess, solver, batch,
                components, bloom, dedup, kern, rows):
     """The lane forms at the lane paths' shapes: SUITE_LANES lanes of
     queen7_7, lane i at rung TIMING_LANES[1][i], each with the first 2048
     states of its largest level; B5 on each lane's sorted children into
     its own empty default-size filter."""
-    shape, ks = TIMING_LANES
-    block = max(TIMING_B)
-    ins = [timing_inputs(torch, np, bitset, graph, preprocess, solver,
-                         batch, shape, k, block=block) for k in ks]
-    n = ins[0][5]
-    adj, states, valid, allowed = (torch.stack([x[i] for x in ins])
-                                   for i in (0, 1, 2, 4))
-    second = [torch.stack([x[7][i] for x in ins]) for i in (0, 1)]
-    kk = torch.tensor([x[3] for x in ins], dtype=torch.int32, device=DEVICE)
-    live = [x[6] for x in ins]
+    args, n, live, second, tag = lane_timing_inputs(
+        torch, np, bitset, graph, preprocess, solver, batch)
+    adj, states, valid, kk, allowed = args
     lanes, b, w = states.shape
-    args = (adj, states, valid, kk, allowed)
     wf = kern["wavefront"]
-    tag = f"{shape} k={ks[0]}..{ks[-1]}"
     for use_mmw, use_simp in WAVEFRONT_FLAGS:
         flags = dict(use_mmw=use_mmw, use_simplicial=use_simp)
         name = flag_name(use_mmw, use_simp)
@@ -2001,6 +2075,113 @@ def time_lanes(torch, np, bitset, graph, preprocess, solver, batch,
                                           f"lanes {tag}"))
 
 
+
+
+# Part (b) of the wavefront kernel (``--parts``): its source with the
+# stores of children and feasibility replaced by a fold of each warp's
+# feasibility into one word, stored only if it equals a constant that a
+# mask of n <= 256 bits never takes whole, so nothing is dropped.  One
+# (stores, fold) pair per layout of the source: a warp per state on a
+# (B/4, L) grid (the design before the tiled one, for timing an older
+# tree), and tiles on a grid sized from the work, whose fold reads the
+# staged feasibility bytes instead.
+PARTS_FOLDS = [(
+    """#pragma unroll
+  for (int r = 0; r < W; ++r) {
+    const int v = lane + kWarp * r;
+    if (v < n) feasible[(size_t)row * n + v] = (feas >> r) & 1u;
+  }
+
+  uint32_t* out = children + (size_t)row * nw;
+  for (int idx = lane; idx < nw; idx += kWarp) {
+    const int v = idx / W;
+    const int x = idx - v * W;
+    uint32_t word = s[x];
+    if (x == (v >> 5)) word |= 1u << (v & 31);
+    out[idx] = word;
+  }
+}""",
+    """  if (__reduce_or_sync(rt::kFull, feas) == 0x9e3779b9u)
+    feasible[row] = 1;
+}"""), (
+    """    store_children<W>(s_states,
+                      p.children + ((size_t)cur.lane * p.n_states + cur.row0) *
+                                       nw,
+                      cur.rows * nw, n);
+    store_bytes(s_feas, feas_out, cur.rows * n);""",
+    """    if (s_feas[threadIdx.x % (cur.rows * n)] == 2) feas_out[0] = 1;"""),
+]
+
+
+def parts_library(build, tag):
+    """The wavefront library of the tree that ``build`` belongs to, built
+    once more with PARTS_FOLDS applied (part (b): no stores), into
+    build/parts/<tag>/."""
+    import ctypes
+    src = build.SOURCES["wavefront"].read_text()
+    folds = [(old, fold) for old, fold in PARTS_FOLDS if old in src]
+    check(len(folds) == 1, "--parts: no known store layout in the "
+                           "wavefront source")
+    src = src.replace(*folds[0])
+    out = ROOT / "build" / "parts" / tag
+    (out / "common").mkdir(parents=True, exist_ok=True)
+    (out / "wavefront" / "csrc").mkdir(parents=True, exist_ok=True)
+    for header in build.headers():
+        rel = header.relative_to(build.SOURCES["wavefront"].parents[2])
+        (out / rel).write_bytes(header.read_bytes())
+    cu = out / "wavefront" / "csrc" / "wavefront.cu"
+    cu.write_text(src)
+    so = out / "wavefront_parts.so"
+    res = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o",
+                          str(so), str(cu)], capture_output=True, text=True,
+                         timeout=600)
+    check(res.returncode == 0, f"--parts: nvcc failed:\n{res.stdout}"
+                               f"{res.stderr}")
+    for kernel, regs, stack, spill in ptxas_rows(res.stdout + res.stderr):
+        log(f"  ptxas parts (b): {kernel}: {regs} registers, {spill} "
+            f"bytes spilled")
+    return ctypes.CDLL(str(so))
+
+
+def phase_parts(torch, np, bitset, graph, preprocess, solver, batch, build,
+                wf, tag):
+    """Device ms by graph replay of the wavefront kernel's parts under
+    every flag set, at the lane shape (TIMING_LANES) and one lane of each
+    TIMING_SHAPES at B=2048: (a) stores only (the kernel with no valid
+    row: children and a zero feasibility row, no closure, no rules), (b)
+    compute only (``parts_library``), (c) the kernel."""
+    lib_c = build.library("wavefront")
+    lib_b = parts_library(build, tag)
+    shapes = []
+    args, n, _live, _second, lane_tag = lane_timing_inputs(
+        torch, np, bitset, graph, preprocess, solver, batch)
+    shapes.append((f"lanes {lane_tag}", args, n))
+    for shape, k in TIMING_SHAPES:
+        adj, states, valid, kk, allowed, n1, _l, _s = timing_inputs(
+            torch, np, bitset, graph, preprocess, solver, batch, shape, k,
+            block=max(TIMING_B))
+        shapes.append((f"{shape} k={k}", (adj, states, valid, kk, allowed),
+                       n1))
+    out = []
+    for label, a, nn in shapes:
+        none_valid = (a[0], a[1], torch.zeros_like(a[2]), *a[3:])
+        for use_mmw, use_simp in WAVEFRONT_FLAGS:
+            flags = dict(use_mmw=use_mmw, use_simplicial=use_simp)
+            times = {}
+            for part, lib, xs in (("a", lib_c, none_valid), ("b", lib_b, a),
+                                  ("c", lib_c, a)):
+                build._LIBS["wavefront"] = lib
+                try:
+                    times[part] = device_ms(torch, lambda: wf.wavefront_expand(
+                        *xs, n=nn, **flags))
+                finally:
+                    build._LIBS["wavefront"] = lib_c
+            name = flag_name(use_mmw, use_simp)
+            log(f"parts wavefront[{name}] {label}: (a) stores only "
+                f"{times['a']:.4f} ms, (b) compute only {times['b']:.4f} ms, "
+                f"(c) kernel {times['c']:.4f} ms")
+            out.append(dict(shape=label, flags=name, **times))
+    return out
 
 
 # device-side names of the port's kernels (the rest is PyTorch's work)
@@ -2118,6 +2299,9 @@ def parse_args(argv):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--times-only", action="store_true",
                     help="run only the build and the kernel times")
+    ap.add_argument("--parts", action="store_true",
+                    help="run only the build and the wavefront kernel's "
+                         "parts: stores only, compute only, whole")
     ap.add_argument("--src", default=str(ROOT / "src"),
                     help="directory that holds the repro_torch package")
     return ap.parse_args(argv)
@@ -2148,13 +2332,20 @@ def main(argv=None):
             "bloom": bloom_kern, "expand": expand_kern}
     ops = {name: mod.ops for name, mod in kern.items()}
     t_start = time.perf_counter()
-    smi = phase_device(build)
+    smi, reports = phase_device(build)
+    if args.parts:
+        parts = phase_parts(torch, np, bitset, graph, preprocess, solver,
+                            batch, build, wavefront_kern.ops,
+                            pathlib.Path(args.src).resolve().parent.name)
+        print(smi, flush=True)
+        print(json.dumps({"parts": parts, "src": args.src}), flush=True)
+        return 0
     if args.times_only:
         log(f"times of the kernels under {args.src}")
         # a tree from before the multi-lane engine has no lane form
         has_lanes = hasattr(wavefront_kern.ops, "LAUNCHES_BY_LANES")
         times = phase_times(torch, np, bitset, graph, preprocess, solver,
-                            batch, components, bloom, dedup, kern,
+                            batch, components, bloom, dedup, kern, reports,
                             lanes=has_lanes)
         log(f"build and times in {time.perf_counter() - t_start:.1f} s")
         print(smi, flush=True)
@@ -2170,7 +2361,7 @@ def main(argv=None):
     log(f"phase 3 (main paths) in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     times = phase_times(torch, np, bitset, graph, preprocess, solver, batch,
-                        components, bloom, dedup, kern)
+                        components, bloom, dedup, kern, reports)
     log(f"phase 4 (times) in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase_split(torch, graph, preprocess, solver, walls)
@@ -2240,6 +2431,7 @@ def main(argv=None):
             entry["serve_launches_by_lanes"] = {
                 p: lanes[base] for p, lanes in serve_lanes.items()}
         if name == "wavefront_lanes":
+            entry["launches_by_lanes_flags"] = LANES_FLAGS
             entry["launches_by_lanes"] = by_lanes
             entry["suite_walls_s"] = suite_walls
             entry["shard_walls_s"] = shard_walls

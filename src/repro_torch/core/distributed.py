@@ -55,6 +55,7 @@ import dataclasses
 import datetime
 import os
 import time
+import traceback
 import warnings
 from typing import Optional
 
@@ -152,6 +153,24 @@ def make_solver_mesh(group=None, device=None) -> SolverMesh:
                       np.asarray(names, dtype=object))
 
 
+# what a rank raises when a peer's failure broke the collective it was in
+_BROKEN_COLLECTIVE = ("Connection reset", "Connection closed", "gloo",
+                      "NCCL", "Broken pipe")
+
+
+@dataclasses.dataclass(frozen=True)
+class _RankFailure:
+    """A rank's exception, recorded before the rank exits: its traceback,
+    and whether it is a collective that a peer's failure broke."""
+    traceback: str
+    collective: bool
+
+
+def _is_broken_collective(exc: BaseException) -> bool:
+    return isinstance(exc, getattr(dist, "DistError", ())) or any(
+        word in str(exc) for word in _BROKEN_COLLECTIVE)
+
+
 def _rank_main(rank, world, port, backend, device, timeout_s, fn, args,
                kwargs, results):
     dev = rank_device(rank, device)
@@ -167,6 +186,12 @@ def _rank_main(rank, world, port, backend, device, timeout_s, fn, args,
     try:
         results.put((rank, fn(make_solver_mesh(device=dev), *args,
                               **kwargs)))
+    except BaseException as exc:
+        # recorded before this rank's sockets close, so ahead of any error
+        # that its exit causes in a peer
+        results.put((rank, _RankFailure(traceback.format_exc(),
+                                        _is_broken_collective(exc))))
+        raise
     finally:
         dist.destroy_process_group()
 
@@ -184,7 +209,8 @@ def launch(fn, nprocs: int, *args, device="cuda",
     a card the kernels are built here first, so the ranks only load
     them.  A rank that raises, a collective that waits past
     ``timeout_s`` or a run past ``deadline_s`` stops every rank and
-    raises here."""
+    raises here: a rank's own error ahead of the errors that its failure
+    caused in its peers' collectives."""
     device = backend_lib.resolve_device(device)
     rank_device(0, device)                   # raises without a card
     if device.type == "cuda":
@@ -202,25 +228,40 @@ def launch(fn, nprocs: int, *args, device="cuda",
                           timeout_s, fn, args, kwargs, results),
         nprocs=nprocs, join=False, start_method="spawn")
     t_end = None if deadline_s is None else time.monotonic() + deadline_s
-    got = {}
+    got, failures = {}, []
+
+    def drain():
+        while not results.empty():
+            rank, value = results.get()
+            if isinstance(value, _RankFailure):
+                failures.append((rank, value))
+            else:
+                got[rank] = value
+
     try:
         while True:
-            while not results.empty():      # drain before joining
-                rank, value = results.get()
-                got[rank] = value
+            drain()                         # drain before joining
             if ctx.join(timeout=0.2):
                 break
             if t_end is not None and time.monotonic() > t_end:
                 raise TimeoutError(f"distributed run of {nprocs} ranks "
                                    f"passed its {deadline_s} s deadline")
+    except mp.ProcessRaisedException as exc:
+        drain()
+        if not failures:
+            raise
+        rank, failure = next(((r, f) for r, f in failures
+                              if not f.collective), failures[0])
+        raise mp.ProcessRaisedException(
+            f"\n\n-- Process {rank} terminated with the following error:"
+            f"\n{failure.traceback}", rank,
+            ctx.processes[rank].pid) from exc
     finally:
         for p in ctx.processes:
             if p.is_alive():
                 p.terminate()
                 p.join(10)
-    while not results.empty():
-        rank, value = results.get()
-        got[rank] = value
+    drain()
     missing = sorted(set(range(nprocs)) - set(got))
     if missing:
         raise RuntimeError(f"ranks {missing} returned no result")

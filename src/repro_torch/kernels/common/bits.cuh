@@ -12,15 +12,14 @@
 // r, so a lane finds its own rows' bits at compile-time word indices, and
 // per-row results fit in a W-bit register mask.
 //
-// The closure, nb and reach keep the lane's W rows of W words in
-// registers (a `Rows<W>`).  Every product loops over the set bits j of S,
-// which is the same on all 32 lanes, so the loops are warp-uniform: each
-// step broadcasts row j (by __shfl_sync from its owner lane, or by one
-// shared-memory load that every lane makes at the same address) and ORs
-// it into the rows that have bit j, without a branch.  The MMW
-// contraction keeps its graph in registers the same way.  The simplicial
-// rule reads rows at random, one witness per lane, so the wavefront
-// kernel copies reach into shared memory for it.
+// reach_rows keeps the lane's W rows of W words in registers (a
+// `Rows<W>`) and grows the components of G[S] by loops that are the same
+// on all 32 lanes: each step reads one adjacency row that every lane
+// loads at the same shared-memory address, without a branch.  The MMW
+// contraction keeps its graph in registers the same way, broadcasting
+// rows by __shfl_sync.  The simplicial rule reads rows at random, one
+// witness per lane, so the wavefront kernel copies reach into shared
+// memory for it.
 #pragma once
 
 #include <cstdint>
@@ -50,99 +49,81 @@ __device__ __forceinline__ uint32_t below(int n, int x) {
 }
 
 // Eliminated-graph rows of the lane's vertices under the state s:
-//   z  = (adj & S) | I on the rows i in S, 0 elsewhere
-//   z  = reflexive-transitive closure of z (the components of G[S])
-//   nb[i]    = OR_{j in z[i]} adj[j]          neighbourhood of i's component
-//   reach[v] = adj[v] | OR_{i in adj[v] & S} nb[i]
-// Only vertices below n count as members of S.  The closure is Warshall's,
-// in place: for each pivot j in S in ascending order, every row with bit j
-// ORs in row j's current value.  The closure of G[S] is unique, so this
-// is the reference's ceil(log2 n) squarings z |= z.z bit for bit, in |S|
-// warp-uniform steps.  `s_adj` is the adjacency (n rows) in shared memory.
-// Returns reach in `reach` and deg_S(v) = |reach[v] \ S \ {v}| in `deg`.
+//   C        ranges over the components of G[S]
+//   N(C)     = OR_{j in C} adj[j]            the neighbourhood of C
+//   reach[v] = adj[v] | OR_{C : adj[v] meets C} N(C)
+// Only vertices below n count as members of S.  This is the reference's
+//   z = closure of (adj & S) | I on the rows of S,
+//   nb[i] = OR_{j in z[i]} adj[j],  reach[v] = adj[v] | OR_{i in adj[v] & S} nb[i]
+// bit for bit: z[i] is i's component C, so nb[i] = N(C), and adj[v] & S
+// holds a member of C exactly when adj[v] meets C (adj is an undirected
+// graph's, so symmetric).  Each component is grown from its lowest
+// unassigned member: the loop pops one member j at a time, ORs adj[j] into
+// N (one shared-memory load per word, at one address for the whole warp)
+// and queues the members of S in N that C lacks.  So each member of S costs
+// one step and each component one more, in which every lane ORs N into its
+// rows that meet C; all of it is warp-uniform, with no shuffle.  `s_adj`
+// is the adjacency (n rows) in shared memory.  Returns reach in `reach`
+// and deg_S(v) = |reach[v] \ S \ {v}| in `deg`.
 template <int W>
 __device__ __forceinline__ void reach_rows(const uint32_t* __restrict__ s_adj,
                                            const uint32_t (&s)[W], int n,
                                            int lane, Rows<W>& reach,
                                            int (&deg)[W]) {
-  uint32_t sn[W];                           // S restricted to 0..n-1
+  uint32_t sn[W], left[W];                  // S below n; not yet in a C
 #pragma unroll
-  for (int x = 0; x < W; ++x) sn[x] = s[x] & below(n, x);
+  for (int x = 0; x < W; ++x) left[x] = sn[x] = s[x] & below(n, x);
 
-  Rows<W> z;
+  Rows<W> a;                                // the lane's rows of adj
 #pragma unroll
   for (int r = 0; r < W; ++r) {
     const int v = lane + kWarp * r;
-    const uint32_t in_s = bit_mask(sn[r], lane);     // 0 for v >= n
 #pragma unroll
     for (int x = 0; x < W; ++x) {
-      uint32_t a = v < n ? s_adj[v * W + x] & sn[x] : 0u;
-      if (x == r) a |= 1u << lane;
-      z.v[r][x] = a & in_s;
-    }
-  }
-#pragma unroll
-  for (int xj = 0; xj < W; ++xj) {
-    for (uint32_t m = sn[xj]; m; m &= m - 1) {       // pivot j = 32 xj + b
-      const int b = __ffs(m) - 1;
-      uint32_t zj[W];
-#pragma unroll
-      for (int y = 0; y < W; ++y) zj[y] = __shfl_sync(kFull, z.v[xj][y], b);
-#pragma unroll
-      for (int r = 0; r < W; ++r) {
-        const uint32_t sel = bit_mask(z.v[r][xj], b);
-#pragma unroll
-        for (int y = 0; y < W; ++y) z.v[r][y] |= sel & zj[y];
-      }
+      a.v[r][x] = v < n ? s_adj[v * W + x] : 0u;
+      reach.v[r][x] = a.v[r][x];
     }
   }
 
-  Rows<W> nb;
+  for (;;) {
+    uint32_t comp[W], todo[W], nbr[W];
+    bool seeded = false;                    // todo = lowest member of left
 #pragma unroll
-  for (int r = 0; r < W; ++r)
-#pragma unroll
-    for (int y = 0; y < W; ++y) nb.v[r][y] = 0u;
-#pragma unroll
-  for (int xj = 0; xj < W; ++xj) {
-    for (uint32_t m = sn[xj]; m; m &= m - 1) {
-      const int j = 32 * xj + __ffs(m) - 1;
-      uint32_t aj[W];
-#pragma unroll
-      for (int y = 0; y < W; ++y) aj[y] = s_adj[j * W + y];
-#pragma unroll
-      for (int r = 0; r < W; ++r) {
-        const uint32_t sel = bit_mask(z.v[r][xj], j & 31);
-#pragma unroll
-        for (int y = 0; y < W; ++y) nb.v[r][y] |= sel & aj[y];
-      }
+    for (int x = 0; x < W; ++x) {
+      comp[x] = nbr[x] = 0u;
+      todo[x] = seeded ? 0u : left[x] & (0u - left[x]);
+      seeded |= left[x] != 0u;
     }
-  }
-
+    if (!seeded) break;
+    for (;;) {
+      uint32_t low[W];                      // pop the lowest queued member
+      bool found = false;
+      int j = 0;
 #pragma unroll
-  for (int r = 0; r < W; ++r) {
-    const int v = lane + kWarp * r;
+      for (int x = 0; x < W; ++x) {
+        low[x] = found ? 0u : todo[x] & (0u - todo[x]);
+        if (low[x]) j = kWarp * x + __ffs(low[x]) - 1;
+        found |= todo[x] != 0u;
+      }
+      if (!found) break;
 #pragma unroll
-    for (int y = 0; y < W; ++y) reach.v[r][y] = v < n ? s_adj[v * W + y] : 0u;
-  }
+      for (int x = 0; x < W; ++x) {
+        comp[x] |= low[x];
+        nbr[x] |= s_adj[j * W + x];
+      }
 #pragma unroll
-  for (int xi = 0; xi < W; ++xi) {
-    uint32_t hop[W];                         // word xi of adj[v] & S
+      for (int x = 0; x < W; ++x) todo[x] = nbr[x] & sn[x] & ~comp[x];
+    }
+#pragma unroll
+    for (int x = 0; x < W; ++x) left[x] &= ~comp[x];
 #pragma unroll
     for (int r = 0; r < W; ++r) {
-      const int v = lane + kWarp * r;
-      hop[r] = v < n ? s_adj[v * W + xi] & sn[xi] : 0u;
-    }
-    for (uint32_t m = sn[xi]; m; m &= m - 1) {       // i = 32 xi + b
-      const int b = __ffs(m) - 1;
-      uint32_t nbi[W];
+      uint32_t hit = 0u;
 #pragma unroll
-      for (int y = 0; y < W; ++y) nbi[y] = __shfl_sync(kFull, nb.v[xi][y], b);
+      for (int x = 0; x < W; ++x) hit |= a.v[r][x] & comp[x];
+      const uint32_t sel = hit ? kFull : 0u;
 #pragma unroll
-      for (int r = 0; r < W; ++r) {
-        const uint32_t sel = bit_mask(hop[r], b);
-#pragma unroll
-        for (int y = 0; y < W; ++y) reach.v[r][y] |= sel & nbi[y];
-      }
+      for (int y = 0; y < W; ++y) reach.v[r][y] |= sel & nbr[y];
     }
   }
 
@@ -228,9 +209,20 @@ __device__ __forceinline__ void broadcast_row(const Rows<W>& a, int v,
 // neighbour u (v itself when isolated); ties go to the lowest index, as
 // jnp.argmin's, by taking the warp minimum of (degree << 8) | index
 // (n <= 256).  The loop stops once the bound exceeds k or at most one
-// vertex is active.  It is not inlined: inlined into the wavefront
-// kernel, the loop ran a third slower on the card (H100, n = 36 and 49).
-template <int W>
+// vertex is active: the returned lb is then the reference's.
+//
+// STOP_AT_K (the wavefront kernel, which needs only whether lb > k) also
+// stops once nact - 1 <= k.  Proof that this changes no answer: a step
+// with nact active vertices lifts lb to at most its second-smallest
+// active degree, and every degree in the contracted graph is at most
+// nact - 1 (a row holds only other active vertices).  nact falls by one
+// per step, so once a step begins with nact - 1 <= k and lb <= k, every
+// later step lifts lb to at most k, and the final lb is <= k.  The
+// returned lb may then be below the reference's; both are <= k.
+//
+// It is not inlined: inlined into the wavefront kernel, the loop ran a
+// third slower on the card (H100, n = 36 and 49).
+template <int W, bool STOP_AT_K = false>
 __device__ __noinline__ int mmw_warp(const Rows<W>& reach,
                                      const uint32_t (&s)[W], int n, int k,
                                      int lane) {
@@ -254,7 +246,7 @@ __device__ __noinline__ int mmw_warp(const Rows<W>& reach,
   }
 
   int lb = 0;
-  while (nact > 1 && lb <= k) {
+  while (nact > 1 && lb <= k && (!STOP_AT_K || nact > k + 1)) {
     unsigned key[W];
     unsigned best = kFull;
 #pragma unroll

@@ -14,9 +14,9 @@
 //
 // Design: the wavefront kernel's closure without its outputs: one warp per
 // state, the adjacency in shared memory once per block, and each lane's
-// rows of z, nb and reach in registers, computed by warp-uniform loops
-// over S (rt::reach_rows).  Degrees are written with consecutive lanes on
-// consecutive v.
+// rows of reach in registers, built by warp-uniform loops that grow the
+// components of G[S] member by member (rt::reach_rows).  Degrees are
+// written with consecutive lanes on consecutive v.
 #include <cstdint>
 #include <cuda_runtime.h>
 

@@ -13,10 +13,14 @@ rule under ``vmap``.
 A CUDA tensor launches the kernel; a CPU tensor takes the plain version
 ``wavefront_ref``.  Nothing else falls back: a failed build or launch
 raises.  ``LAUNCHES`` counts kernel launches, ``LAUNCHES_BY_B`` the same
-launches by chunk width (rows B of each lane's states) and
-``LAUNCHES_BY_LANES`` by lane count L (1 for the single-lane form) and
+launches by chunk width (rows B of each lane's states),
+``LAUNCHES_BY_LANES`` by lane count L (1 for the single-lane form),
 ``LAUNCHES_BY_FLAGS`` by pruning rules, keyed ``(use_mmw,
-use_simplicial)``.
+use_simplicial)``, and ``LAUNCHES_BY_LANES_FLAGS`` by both, keyed ``(L,
+use_mmw, use_simplicial)``.  Each wrapper call that launches adds one to
+each.  The kernel sizes its own grid from the work and the card
+(``occupancy``), so a call makes no host read and records in a CUDA
+graph.
 """
 from __future__ import annotations
 
@@ -33,19 +37,15 @@ LAUNCHES = 0
 LAUNCHES_BY_B: collections.Counter = collections.Counter()
 LAUNCHES_BY_LANES: collections.Counter = collections.Counter()
 LAUNCHES_BY_FLAGS: collections.Counter = collections.Counter()
-
-# states (warps) per thread block.  A block holds the adjacency (n*W words)
-# in shared memory; under the simplicial rule each warp adds n*W words, 40
-# KB per block at the largest W (8) and n (256)
-WARPS_PER_BLOCK = 4
+LAUNCHES_BY_LANES_FLAGS: collections.Counter = collections.Counter()
 
 _c = ctypes.c_void_p
 _i = ctypes.c_int
+_ip = ctypes.POINTER(ctypes.c_int)
 # adj, states, states_lane_stride, valid, allowed, k, k_lanes, n, w,
-# n_states, lanes, warps_per_block, use_mmw, use_simplicial, children,
-# feasible, stream
+# n_states, lanes, use_mmw, use_simplicial, children, feasible, stream
 _ARGTYPES = [_c, _c, ctypes.c_size_t, _c, _c, _i, _c, _i, _i, _i, _i, _i,
-             _i, _i, _c, _c, _c]
+             _i, _c, _c, _c]
 
 
 def wavefront_ref(adj, states, valid, k, allowed, *, n: int,
@@ -66,7 +66,25 @@ def _lib():
         lib.wavefront_launch.restype = ctypes.c_int
         lib.wavefront_max_words.argtypes = []
         lib.wavefront_max_words.restype = ctypes.c_int
+        lib.wavefront_occupancy.argtypes = [_i, _i, _i, _ip, _ip, _ip]
+        lib.wavefront_occupancy.restype = ctypes.c_int
     return lib
+
+
+def occupancy(w: int, use_mmw: bool = False,
+              use_simplicial: bool = False) -> dict:
+    """What the kernel for W words and these rules keeps resident on the
+    current card: its SM count, blocks per SM, threads per block and
+    warps per SM, as the launch reads them to size its grid."""
+    lib = _lib()
+    sms, blocks, threads = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    err = lib.wavefront_occupancy(w, int(use_mmw), int(use_simplicial),
+                                  ctypes.byref(sms), ctypes.byref(blocks),
+                                  ctypes.byref(threads))
+    build.check_launch("wavefront occupancy", err, f"W={w}")
+    return dict(sms=sms.value, blocks_per_sm=blocks.value,
+                threads=threads.value,
+                warps_per_sm=blocks.value * threads.value // 32)
 
 
 def _check(adj, states, valid, k, allowed, n):
@@ -141,7 +159,7 @@ def wavefront_expand(adj, states, valid, k, allowed, *, n: int,
             adj.data_ptr(), states.data_ptr(),
             states.stride(0) if lanes else 0, valid.data_ptr(),
             allowed.data_ptr(), 0 if lanes else int(k),
-            k.data_ptr() if lanes else None, n, w, b, nl, WARPS_PER_BLOCK,
+            k.data_ptr() if lanes else None, n, w, b, nl,
             int(use_mmw), int(use_simplicial), children.data_ptr(),
             feasible.data_ptr(), torch.cuda.current_stream().cuda_stream)
     build.check_launch("wavefront", err, f"n={n}, W={w}, B={b}, L={nl}")
@@ -150,4 +168,6 @@ def wavefront_expand(adj, states, valid, k, allowed, *, n: int,
         LAUNCHES_BY_B[b] += 1
         LAUNCHES_BY_LANES[nl] += 1
         LAUNCHES_BY_FLAGS[(bool(use_mmw), bool(use_simplicial))] += 1
+        LAUNCHES_BY_LANES_FLAGS[(nl, bool(use_mmw),
+                                 bool(use_simplicial))] += 1
     return children, feasible

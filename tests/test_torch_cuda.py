@@ -470,3 +470,253 @@ def test_distributed_ranks_share_the_card(dev):
     assert [rows for rows, _ in got] == [rows for rows, _ in want]
     assert all(n > 0 for _, n in got), got
     assert all(n == 0 for _, n in want), want
+
+
+# ------------------------------------- the wavefront kernel's tiled grid
+
+TILE_B = (1, 7, 31, 32, 33, 127, 128, 129, 2047, 2048)
+TILE_N = (17, 32, 33, 49, 64, 65, 256)
+FLAG_IDS = ["none", "mmw", "simplicial", "mmw+simplicial"]
+
+
+def replay_contraction(reach, s_bits, k, n, stop_at_k=False):
+    """The MMW contraction (``repro_torch.core.mmw.mmw_bound``, the loop of
+    ``rt::mmw_warp``) replayed step by step in numpy on bool matrices.
+    With ``stop_at_k`` it also stops once nact - 1 <= k, as the wavefront
+    kernel's MMW rule does.  Returns the final lb and (nact, lb) at the
+    start of every step."""
+    big = 1 << 20
+    eye = np.eye(n, dtype=bool)
+    active = ~s_bits
+    a = reach & active[None, :] & ~eye & active[:, None]
+    lb, nact, steps = 0, int(active.sum()), []
+    while nact > 1 and lb <= k and not (stop_at_k and nact - 1 <= k):
+        steps.append((nact, lb))
+        d = np.where(active, a.sum(axis=1), big)
+        v = int(np.argmin(d))
+        second = np.where(np.arange(n) == v, big, d).min()
+        lb = max(lb, int(min(second, big - 1)))
+        u = int(np.argmin(np.where(a[v], d, big))) if d[v] > 0 else v
+        merged = (a[v] | a[u]) & active
+        merged[[u, v]] = False
+        a[:, u] = False
+        a[:, v] = merged
+        a[v] = merged
+        a[u] = False
+        active[u] = False
+        nact -= 1
+    return lb, steps
+
+
+def _tile_inputs(n, b, lanes, seed, dev):
+    """Per-lane graphs (densities 0.2, 0.5, 0.9 in turn) and states of
+    |S| about n/2, the same size within a lane, so that lane l's k, which
+    cycles through 0, n-|S|-2, n-|S|-1, n-|S| and n, puts nact at k + 2
+    and k + 1; lane 1 has no valid row, the others every third row
+    invalid."""
+    rng = np.random.RandomState(seed)
+    adj, states, ks = [], [], []
+    for lane in range(lanes):
+        adj.append(graph.gnp(n, (0.2, 0.5, 0.9)[lane % 3],
+                             seed + lane).packed())
+        size = min(n - 1, max(0, n // 2 + lane % 3 - 1))
+        bits = np.zeros((b, n), dtype=bool)
+        for row in bits:
+            row[rng.choice(n, size, replace=False)] = True
+        states.append(bitset.np_pack([set(np.flatnonzero(r)) for r in bits],
+                                     n))
+        ks.append(max(0, (0, n - size - 2, n - size - 1, n - size,
+                          n)[lane % 5]))
+    valid = np.arange(b)[None].repeat(lanes, 0) % 3 != 0
+    if lanes > 1:
+        valid[1] = False
+    allowed = np.stack([bitset.np_allowed(n, [lane % n])
+                        for lane in range(lanes)])
+    return (bitset.to_words(np.stack(adj), dev),
+            bitset.to_words(np.stack(states), dev),
+            torch.from_numpy(valid).to(dev),
+            torch.tensor(ks, dtype=torch.int32, device=dev),
+            bitset.to_words(allowed, dev))
+
+
+def _same_as_plain(args, n, kw, label):
+    gc, gf = wavefront_kernel.wavefront_expand(*args, n=n, **kw)
+    wc, wf = wavefront_kernel.wavefront_ref(*args, n=n, **kw)
+    assert torch.equal(gc, wc) and torch.equal(gf, wf), label
+    return gf
+
+
+@pytest.mark.parametrize("flags", FLAGS, ids=FLAG_IDS)
+def test_tiled_wavefront_kernel_shapes(dev, flags):
+    """Bit for bit against wavefront_ref at every chunk width B around a
+    warp and a tile, every word edge of n up to W = 8, one lane and
+    three, per-lane k at nact = k + 1 and k + 2, a lane with no valid
+    row and interleaved invalid rows."""
+    kw = dict(use_mmw=flags[0], use_simplicial=flags[1])
+    for n in TILE_N:
+        for b in TILE_B:
+            for lanes in (1, 3):
+                args = _tile_inputs(n, b, lanes, seed=n * b + lanes, dev=dev)
+                if lanes == 1:
+                    args = (args[0][0], args[1][0], args[2][0],
+                            int(args[3][0]), args[4][0])
+                gf = _same_as_plain(args, n, kw, (n, b, lanes))
+                if lanes > 1:
+                    assert not gf[1].any()
+
+
+def _walks(w, flags, lanes, b):
+    """Whether a launch of `lanes` x `b` states has more tiles than the
+    grid has blocks: the launch's own geometry from the card's
+    occupancy."""
+    occ = wavefront_kernel.ops.occupancy(w, *flags)
+    slots = occ["sms"] * occ["blocks_per_sm"]
+    warps = occ["threads"] // 32
+    spw = min(4, max(1, -(-lanes * b // (slots * warps))))
+    return lanes * -(-b // (warps * spw)) > slots
+
+
+@pytest.mark.parametrize("flags", FLAGS, ids=FLAG_IDS)
+def test_tiled_wavefront_kernel_walks_tiles_across_lanes(dev, flags):
+    """More tiles than the grid has blocks, so that every block walks
+    several tiles and changes lane on the way: 8 and 33 lanes of 2048
+    states (33 lanes also as a lane-strided view, as the engine's chunks
+    are), and 8 lanes at n = 256, where one block fills an SM."""
+    kw = dict(use_mmw=flags[0], use_simplicial=flags[1])
+    for n, lanes in ((17, 33), (49, 8), (49, 33), (256, 8)):
+        args = _tile_inputs(n, 2048, lanes, seed=n + lanes, dev=dev)
+        if (n, lanes) != (49, 8):           # the lane paths' timing shape
+            assert _walks(args[1].shape[-1], flags, lanes, 2048), (n, lanes)
+        _same_as_plain(args, n, kw, (n, lanes))
+    adj, states, valid, k, allowed = _tile_inputs(49, 2048, 33, 3, dev)
+    assert _walks(2, flags, 33, 2048)
+    buf = torch.zeros((33, 3 * 2048, 2), dtype=torch.int32, device=dev)
+    buf[:, 2048:4096] = states
+    got = wavefront_kernel.wavefront_expand(adj, buf[:, 2048:4096], valid,
+                                            k, allowed, n=49, **kw)
+    want = wavefront_kernel.wavefront_ref(adj, states, valid, k, allowed,
+                                          n=49, **kw)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _solver_level(dev, name="queen7_7", k=30, block=2048):
+    """The first ``block`` states of the largest level of ``name`` at k,
+    as the engine expands them, with the block's adjacency and allowed
+    mask."""
+    from repro_torch.core import batch, preprocess, solver
+    g = preprocess.preprocess(graph.REGISTRY[name]()).blocks[0].g
+    plan = solver.plan_block(g, use_clique=True, use_paths=True,
+                             start_k=None)
+    gk = plan.graph_at(k)
+    res = solver.decide(gk, k, plan.clique,
+                        cap=batch.plan_capacity(g.n, block=block),
+                        block=block, keep_levels=True, engine="host",
+                        device=dev)
+    level = max(res.levels, key=len)[:block]
+    return (g.n, gk.packed(), np.asarray(level, dtype=np.uint32),
+            bitset.np_allowed(g.n, plan.clique))
+
+
+@pytest.mark.parametrize("flags", FLAGS, ids=FLAG_IDS)
+def test_tiled_wavefront_kernel_on_solver_states(dev, flags):
+    """The solver's own shape: queen7_7's largest level at k = 30 (|S| of
+    4-5, a few components), on 8 lanes with k = 23..30 as the lane paths
+    time it, and on one lane."""
+    kw = dict(use_mmw=flags[0], use_simplicial=flags[1])
+    n, adj, level, allowed = _solver_level(dev)
+    lanes = 8
+    states = bitset.to_words(np.broadcast_to(
+        level, (lanes,) + level.shape).copy(), dev)
+    valid = torch.ones((lanes, len(level)), dtype=torch.bool, device=dev)
+    args = (bitset.to_words(np.broadcast_to(adj, (lanes,) + adj.shape)
+                            .copy(), dev), states, valid,
+            torch.arange(23, 31, dtype=torch.int32, device=dev),
+            bitset.to_words(np.broadcast_to(allowed, (lanes,)
+                                            + allowed.shape).copy(), dev))
+    _same_as_plain(args, n, kw, "lanes")
+    _same_as_plain((args[0][0], states[0], valid[0], 30, args[4][0]), n, kw,
+                   "one lane")
+
+
+def test_wavefront_kernel_records_in_a_cuda_graph(dev):
+    """One call captured in a CUDA graph (the default capture mode fails on
+    any host read) and replayed on new states and a new per-lane k, one
+    lane and 8, under every flag set."""
+    for use_mmw, use_simp in FLAGS:
+        kw = dict(use_mmw=use_mmw, use_simplicial=use_simp)
+        for lanes in (1, 8):
+            first = _tile_inputs(49, 2048, lanes, seed=11, dev=dev)
+            second = _tile_inputs(49, 2048, lanes, seed=12, dev=dev)
+            if lanes == 1:
+                first = (first[0][0], first[1][0], first[2][0], 20,
+                         first[4][0])
+                second = (first[0], second[1][0], second[2][0], 20,
+                          first[4])
+            args = [x.clone() if isinstance(x, torch.Tensor) else x
+                    for x in first]
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                wavefront_kernel.wavefront_expand(*args, n=49, **kw)
+            torch.cuda.current_stream().wait_stream(side)
+            graph_ = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph_):
+                children, feasible = wavefront_kernel.wavefront_expand(
+                    *args, n=49, **kw)
+            for i, x in enumerate(second):
+                if isinstance(x, torch.Tensor):
+                    args[i].copy_(x)
+            graph_.replay()
+            torch.cuda.synchronize()
+            want = wavefront_kernel.wavefront_ref(*second, n=49, **kw)
+            assert torch.equal(children, want[0]), (kw, lanes)
+            assert torch.equal(feasible, want[1]), (kw, lanes)
+
+
+def test_mmw_kernel_unchanged_on_the_tile_states(dev):
+    """B4 keeps the whole contraction and the reference's lb values: on
+    the tiled tests' states, at k = 0, n - |S| - 2 .. n - |S| and n."""
+    for n in (17, 33, 49, 65):
+        adj, states, valid, ks, _ = _tile_inputs(n, 129, 5, seed=n, dev=dev)
+        for lane in range(5):
+            _, reach = components.eliminated_degrees(adj[lane],
+                                                     states[lane], n)
+            for k in ks.tolist():
+                assert torch.equal(
+                    mmw_kernel.mmw_bounds(reach, states[lane], k, n=n),
+                    mmw_kernel.mmw_bounds_ref(reach, states[lane], k, n=n)), \
+                    (n, lane, k)
+
+
+def test_mmw_rule_where_lb_crosses_k_on_the_last_step(dev):
+    """States with a feasible candidate whose full contraction lifts lb
+    past k on its step with nact = k + 2, the last one the kernel's
+    stopped loop runs (found by replaying the contraction in numpy): the
+    kernel prunes them as the plain version does."""
+    rng = np.random.RandomState(7)
+    for n in (33, 49):
+        g = graph.gnp(n, 0.3, n)
+        adj = bitset.to_words(g.packed(), dev)
+        allowed = bitset.to_words(bitset.np_full(n), dev)
+        bits = rng.rand(256, n) < rng.uniform(0.05, 0.3, size=(256, 1))
+        states = bitset.to_words(bitset.np_pack(
+            [set(np.flatnonzero(r)) for r in bits], n), dev)
+        deg, reach = components.eliminated_degrees(adj, states, n)
+        reach = bitset.unpack(reach, n).cpu().numpy()
+        deg = deg.cpu().numpy()
+        by_k = {}
+        for row in range(len(bits)):
+            out = ~bits[row]
+            # from the least k with a feasible candidate to nact - 3
+            for k in range(int(deg[row][out].min()), int(out.sum()) - 2):
+                lb, steps = replay_contraction(reach[row], bits[row].copy(),
+                                               k, n, stop_at_k=True)
+                if steps and steps[-1][0] == k + 2 and steps[-1][1] <= k < lb:
+                    by_k.setdefault(k, []).append(row)
+        assert by_k, n
+        for k, rows in by_k.items():
+            idx = torch.tensor(rows, device=dev)
+            args = (adj, states[idx], torch.ones(len(rows), dtype=torch.bool,
+                                                 device=dev), k, allowed)
+            gf = _same_as_plain(args, n, dict(use_mmw=True), (n, k))
+            assert not gf.any(), (n, k)

@@ -108,10 +108,10 @@ def test_backend_rule_and_rank_devices(monkeypatch):
 
 
 def test_a_failed_rank_fails_the_run():
-    """The failed rank, or the peer whose collective it broke, raises
-    here; no rank is left running."""
+    """The failed rank's own error raises here, not the error that its
+    failure caused in its peer's collective; no rank is left running."""
     with pytest.raises(mp.ProcessRaisedException,
-                       match="failed on purpose|Connection reset"):
+                       match="failed on purpose"):
         twins.port(twins.fail_on, 2, 1)
 
 

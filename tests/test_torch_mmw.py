@@ -23,6 +23,9 @@ from repro.core import mmw as ref_mmw
 from repro.kernels.mmw import mmw_bounds as pallas_mmw
 from repro_torch.core import backend, bitset, mmw
 from repro_torch.kernels import mmw as kernel_mod
+# the contraction replayed step by step in numpy (it imports no JAX, so it
+# lives with the card tests, which use it too)
+from test_torch_cuda import replay_contraction
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -123,3 +126,56 @@ def test_wrapper_rejects_bad_inputs():
     before = kernel_mod.ops.LAUNCHES
     kernel_mod.mmw_bounds(r, s, 3, n=12)
     assert kernel_mod.ops.LAUNCHES == before
+
+
+# ------------------------------------------- where B1's contraction stops
+
+def _stop_cases(n, seed):
+    """(reach bool (n, n), S bool (n,), k) from a numpy seed: G(n, p) at
+    several densities, states of every size class, and for each state k
+    at and around n - |S| (so that nact = k + 1 and k + 2 at the start),
+    at a few random values and at 0 and n."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for p in (0.2, 0.5, 0.8, 0.95):
+        g = ref_graph.gnp(n, p, int(rng.randint(1 << 30)))
+        adj = jnp.asarray(g.packed())
+        for _ in range(6):
+            s_bits = rng.rand(n) < rng.choice([0.05, 0.2, 0.5])
+            words = ref_bitset.np_pack([set(np.flatnonzero(s_bits))], n)[0]
+            _, reach = ref_components.eliminated_degrees(
+                adj, jnp.asarray(words), n)
+            reach = np.asarray(ref_bitset.unpack(reach, n), dtype=bool)
+            nact = n - int(s_bits.sum())
+            ks = {0, n, nact - 3, nact - 2, nact - 1, nact,
+                  *rng.randint(0, n, size=2)}
+            out += [(reach, s_bits, int(k), words) for k in ks if k >= 0]
+    return out
+
+
+@pytest.mark.parametrize("n", [9, 17, 33, 49])
+def test_contraction_stops_once_it_can_no_longer_exceed_k(n):
+    """The wavefront kernel's MMW loop stops once nact - 1 <= k: every
+    degree in the contracted graph is at most nact - 1, so no later step
+    can lift lb past k.  The replay ends at the JAX package's
+    ``mmw_bound``; whenever a step begins with nact - 1 <= k and lb <= k,
+    the final lb is <= k; and the stopped loop prunes exactly the states
+    that the full loop prunes."""
+    crossed_last = 0
+    for reach, s_bits, k, words in _stop_cases(n, seed=n):
+        lb, steps = replay_contraction(reach, s_bits.copy(), k, n)
+        want = int(ref_mmw.mmw_bound(jnp.asarray(ref_bitset.np_pack(
+            [set(np.flatnonzero(r)) for r in reach], n)), jnp.asarray(words),
+            jnp.int32(k), n))
+        assert lb == want, (n, k)
+        for nact, lb0 in steps:
+            if nact - 1 <= k and lb0 <= k:
+                assert lb <= k, (n, k, nact, lb0, lb)
+        stopped, short = replay_contraction(reach, s_bits.copy(), k, n,
+                                            stop_at_k=True)
+        assert (stopped > k) == (lb > k), (n, k, stopped, lb)
+        assert len(short) <= max(0, n - int(s_bits.sum()) - (k + 1))
+        # lb crossed k on the last step that the stopped loop runs
+        crossed_last += bool(short) and short[-1][0] == k + 2 \
+            and stopped > k
+    assert crossed_last > 0, n

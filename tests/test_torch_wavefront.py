@@ -100,6 +100,44 @@ def test_matches_pallas_kernel_in_interpret_mode(n):
     np.testing.assert_array_equal(gf, np.asarray(pf))
 
 
+@pytest.mark.parametrize("n", [17, 33, 49])
+def test_mmw_rule_matches_reference_where_the_contraction_stops(n):
+    """The plain ``wavefront_expand`` with ``use_mmw=True`` (the torch op
+    and the wrapper's CPU path) equals the JAX package's wavefront op on
+    states from a numpy seed, with k at and around n - |S| - 1, where the
+    kernel's contraction stops once nact - 1 <= k; some rows are pruned
+    by the rule."""
+    rng = np.random.RandomState(n)
+    pruned = 0
+    for p in (0.3, 0.5, 0.9):
+        g = ref_graph.gnp(n, p, n + int(100 * p))
+        size = n // 4
+        sets = [set(rng.choice(n, size, replace=False)) for _ in range(8)]
+        states = ref_bitset.np_pack(sets, n)
+        valid = np.ones((len(sets),), dtype=bool)
+        valid[3] = False
+        allowed = np.asarray(ref_bitset.full(n))
+        nact = n - size
+        for k in sorted({nact - 3, nact - 2, nact - 1, nact,
+                         *rng.randint(nact // 3, nact - 3, size=3)}):
+            c, f = ref_expand.wavefront_expand(
+                jnp.asarray(g.packed()), jnp.asarray(states),
+                jnp.asarray(valid), jnp.int32(k), jnp.asarray(allowed),
+                n=n, use_mmw=True)
+            for fn in (expand.wavefront_expand, kernel_mod.wavefront_expand):
+                gc, gf = fn(bitset.to_words(g.packed(), "cpu"),
+                            bitset.to_words(states, "cpu"),
+                            torch.from_numpy(valid), k,
+                            bitset.to_words(allowed, "cpu"), n=n,
+                            use_mmw=True)
+                np.testing.assert_array_equal(bitset.from_words(gc),
+                                              np.asarray(c))
+                np.testing.assert_array_equal(gf.numpy(), np.asarray(f))
+            _, plain = _ref(g.packed(), states, valid, k, allowed, n)
+            pruned += int((plain.any(1) & ~np.asarray(f).any(1)).sum())
+    assert pruned > 0
+
+
 @pytest.mark.parametrize("n_states", [1, 2, 5, 8, 13])
 def test_batch_sweep_with_invalid_rows_and_allowed_mask(n_states):
     n = 16
@@ -204,9 +242,12 @@ def test_cuda_kernel_matches_plain_version():
 
 def _warp_model(adj, s, n):
     """The CUDA kernel's per-warp arithmetic (``rt::reach_rows``) in numpy
-    words: Warshall's closure over the set bits of S in ascending order,
-    then nb and reach as uniform loops over S.  adj (n, W) uint32, s (W,)
-    uint32 -> (z, reach (n, W) uint32, deg (n,) int)."""
+    words: each component C of G[S] grown from its lowest unassigned
+    member, one member's adjacency row at a time (the lowest queued member
+    first), N(C) the OR of its members' rows, and reach[v] = adj[v] | N(C)
+    for every C that adj[v] meets.  adj (n, W) uint32, s (W,) uint32 ->
+    (z (each member's row: its component), reach (n, W) uint32, deg (n,)
+    int)."""
     w = adj.shape[1]
     rows = 32 * w                           # lane + 32 r for r < W
     a = np.zeros((rows, w), dtype=np.uint32)
@@ -214,29 +255,30 @@ def _warp_model(adj, s, n):
     below = np.array([(1 << max(0, min(32, n - 32 * x))) - 1
                       for x in range(w)], dtype=np.uint64).astype(np.uint32)
     sn = s & below
-    pivots = [32 * x + b for x in range(w) for b in range(32)
-              if (int(sn[x]) >> b) & 1]
 
-    def bit(words, j):                      # bit j of every row, 0 or 1
-        return (words[:, j >> 5] >> np.uint32(j & 31)) & np.uint32(1)
+    def members(words):
+        return [32 * x + b for x in range(w) for b in range(32)
+                if (int(words[x]) >> b) & 1]
 
-    in_s = np.array([(int(sn[v >> 5]) >> (v & 31)) & 1 for v in range(rows)],
-                    dtype=bool)
     eye = np.zeros((rows, w), dtype=np.uint32)
     for v in range(rows):
         eye[v, v >> 5] = np.uint32(1 << (v & 31))
-    z = np.where(in_s[:, None], (a & sn[None]) | eye, np.uint32(0))
-    for j in pivots:                        # Warshall, in place
-        zj = z[j].copy()                    # the broadcast row
-        sel = np.uint32(0) - bit(z, j)
-        z |= sel[:, None] & zj[None]
-    nb = np.zeros_like(z)
-    for j in pivots:
-        nb |= (np.uint32(0) - bit(z, j))[:, None] & a[j][None]
-    hop = a & sn[None]
+    z = np.zeros_like(a)
     reach = a.copy()
-    for i in pivots:
-        reach |= (np.uint32(0) - bit(hop, i))[:, None] & nb[i][None]
+    left = set(members(sn))
+    while left:
+        comp = np.zeros((w,), dtype=np.uint32)
+        nbr = np.zeros((w,), dtype=np.uint32)
+        todo = [min(left)]
+        while todo:                         # pop the lowest queued member
+            j = min(todo)
+            comp |= eye[j]
+            nbr |= a[j]
+            todo = members(nbr & sn & ~comp)
+        left -= set(members(comp))
+        z[members(comp)] = comp
+        hit = (a & comp[None]).any(axis=1)
+        reach[hit] |= nbr
     q = reach & ~s[None] & ~eye
     deg = np.array([sum(bin(int(x)).count("1") for x in row) for row in q])
     return z[:n], reach[:n], deg[:n]
@@ -257,9 +299,9 @@ def _model_states(n, seed):
 
 @pytest.mark.parametrize("n", [3, 17, 31, 32, 33, 48, 63, 64, 65, 100])
 def test_warp_algorithm_matches_reference(n):
-    """The kernel's closure (Warshall over S), nb and reach equal the JAX
-    reference's doubling closure and degrees, and the port's plain
-    wavefront op, exactly (bitsets)."""
+    """The kernel's closure (components of G[S] grown member by member),
+    nb and reach equal the JAX reference's doubling closure and degrees,
+    and the port's plain wavefront op, exactly (bitsets)."""
     from repro.core import components as ref_components
     g = ref_graph.gnp(n, 0.25, n + 5)
     adj = np.asarray(g.packed(), dtype=np.uint32)
