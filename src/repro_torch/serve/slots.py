@@ -5,9 +5,8 @@ each holding the in-flight state of one admitted request, advanced by a
 shared batched device step, with finished slots recycled to the queue
 immediately:
 
-  * ``repro.serve.scheduler``  — LM decode: a slot is a sequence, the
-    shared step is one batched decode tick (not ported yet: ROADMAP
-    A14);
+  * ``repro_torch.serve.scheduler`` — LM decode: a slot is a sequence,
+    the shared step is one batched decode tick;
   * ``repro_torch.serve.twscheduler`` — treewidth solves: a slot is a solve
     request's current deepening rung, the shared step is one multi-lane
     ``batch.decide_lanes`` dispatch.
