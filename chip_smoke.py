@@ -120,6 +120,30 @@ Phases, each fatal on failure (non-zero exit, no result line):
      choice.  Parameters and bytes, prefill ms, ms per decode tick,
      tokens/s and peak bytes per model; ``{"lm_serving": [...]}`` before
      the device line.  No kernel: the models are plain PyTorch ops.
+ 12. LM training: the port's trainer on the card in float32, TF32 off.
+     (a) ``launch.train.main`` on qwen3-0.6b at full width and depth
+     (596180992 parameters, AdamW, 8 x 512 tokens a step, 30 steps, 10
+     of warmup): every loss and grad_norm finite and the last five
+     losses' mean below the first five's; ms per step (host clock ending
+     in ``torch.cuda.synchronize()``), tokens/s beside the 6 N T / 67
+     TFLOP/s bound, peak bytes; (b) one step of the same weights on the
+     card and on the CPU (1 x 32): loss, nll and grad_norm within
+     TRAIN_METRIC_TOL, every gradient leaf within TRAIN_GRAD_TOL of its
+     range, every parameter within what each side's own AdamW m and v
+     give (``adamw_excess``; the first update's slope in the gradient is
+     1/eps near 0, so the parameters alone cannot be held to a fixed
+     tolerance); (c) the gradients of (a)'s batch under ``remat`` "full"
+     and "dots" within TRAIN_REMAT_TOL of none, and each one's peak
+     bytes below none's; (d) ``microbatch=4`` against none: the
+     gradients within TRAIN_GRAD_TOL, one step's parameters within the
+     m/v bound; (e) at ``reduced`` size, the supervisor's crash at step
+     30 and resume from 20, and 25 straight steps against 15 +
+     checkpoint + restore + 10 (deterministic kernels) within
+     TRAIN_RESUME_TOL; (f) 2 ranks sharing the card over gloo:
+     ``compressed_psum`` against the plain mean (rel err < 0.05), and
+     the compressed reduced-qwen3 training's loss falling by 0.3 in 30
+     steps.  ``{"lm_training": {...}}`` before the device line.  No
+     kernel: training reaches no Pallas kernel in the reference.
 
 The second-to-last line is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or ``repro``.
@@ -529,6 +553,39 @@ LM_TOL = 1e-3
 # that.
 XLSTM_CPU = 7.520e-4
 LM_PERIOD_TOL = {"xlstm-1.3b": 4 * XLSTM_CPU}
+# LM training (phase 12): the port's trainer on the card in float32 with
+# TF32 off.  (a) ``launch.train`` on TRAIN_MAIN at full width and depth,
+# AdamW, TRAIN_BATCH x TRAIN_SEQ tokens a step, TRAIN_STEPS steps (10 of
+# them warmup); (b) one step of the same weights on the card and on the
+# CPU at TRAIN_CPU_TOKENS; (c) the gradients under ``remat`` "full" and
+# "dots" against none, at (a)'s batch; (d) ``microbatch=TRAIN_MICRO``
+# against none; (e) the supervisor's crash and resume, and 25 straight
+# steps against 15 + checkpoint + restore + 10, at ``reduced`` size; (f)
+# ``compressed_psum`` and compressed training on TRAIN_RANKS ranks
+# sharing the card over gloo.
+TRAIN_MAIN = "qwen3-0.6b"
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 30, 8, 512
+TRAIN_LR = 3e-4
+TRAIN_CPU_TOKENS = (1, 32)
+# (b), (d): one step from the same weights at TRAIN_CMP_LR (warmup 0)
+TRAIN_CMP_LR = 1e-4
+# card vs CPU: the metrics within TRAIN_METRIC_TOL (relative), each
+# gradient leaf within TRAIN_GRAD_TOL of its range (the CPU twins'
+# GRAD_TOL: the reference's init makes the gradients ill-conditioned,
+# tests/lm_conditioning.py item 6)
+TRAIN_METRIC_TOL = 1e-4
+TRAIN_GRAD_TOL = 1e-3
+TRAIN_REMAT_TOL = 1e-5
+TRAIN_MICRO = 4
+# (d) reports the parameters past 1e-4 (test_grad_accumulation_equivalence's
+# bound): an element whose gradient is near 0 moves by up to 2 * lr with the
+# summation order, so the check is the m/v bound of (b)
+TRAIN_MICRO_TOL = 1e-4
+TRAIN_RESUME = (15, 25)     # checkpoint after 15 steps, compare at 25
+TRAIN_RESUME_TOL = 1e-6
+TRAIN_RANKS = 2
+TRAIN_COMPRESS_ROWS = 1 << 20
+TRAIN_COMPRESS_STEPS = 30
 KERNELS = {
     "wavefront": ("src/repro_torch/kernels/wavefront/csrc/wavefront.cu",
                   "src/repro/kernels/wavefront/kernel.py:47"),
@@ -2697,6 +2754,390 @@ def phase_lm(torch, np):
     return out
 
 
+# ---------------------------------------------------------- LM training
+
+def tree_tensors(tree):
+    """The tensors of a tree of dicts and tuples, dict keys sorted."""
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in tree_tensors(tree[k])]
+    if isinstance(tree, tuple):
+        return [t for v in tree for t in tree_tensors(v)]
+    return [tree]
+
+
+def _cpu_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _cpu_tree(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_cpu_tree(v) for v in tree)
+    return tree.to("cpu")
+
+
+def train_grads(step_lib, model, tcfg, batch):
+    """(gradients, metrics as floats) of one batch."""
+    g, m = step_lib.grads_of(model, tcfg, batch)
+    return g, {k: float(v) for k, v in m.items()}
+
+
+def leaf_rel_err(torch, got, want):
+    """The largest over the tensors of max |got - want| / max |want|."""
+    worst = 0.0
+    for a, b in zip(got, want):
+        a, b = a.detach(), b.detach()
+        b = b.to(a.device)
+        scale = float(torch.max(torch.abs(b)))
+        err = float(torch.max(torch.abs(a.float() - b.float())))
+        worst = max(worst, err / scale if scale else err)
+    return worst
+
+
+def adamw_excess(torch, model, ps_a, ps_b, opt_a, opt_b, p0, lr, count):
+    """How far two AdamW steps from the same parameters ``p0`` disagree
+    beyond what their own ``m`` and ``v`` explain: the largest, over the
+    elements, of |p_a - p_b| - (lr |u_a - u_b| + 2e-6 (|p0| + lr (|u_b| +
+    1))), with u = m^/(sqrt(v^) + eps) in float64 (``tests/
+    test_torch_train.py``).  At most 0 when they agree."""
+    from repro_torch.models.params import stacked_leaves
+    worst = -float("inf")
+    i = 0
+    for path, _, ts in stacked_leaves(model):
+        ms = []
+        for tree in (opt_a["m"], opt_a["v"], opt_b["m"], opt_b["v"]):
+            for seg in path:
+                tree = tree[seg]
+            ms.append(tree)
+        dev = ts[0].device
+        bc1, bc2 = 1 - 0.9 ** count, 1 - 0.95 ** count
+        for r in range(len(ts)):
+            rows = [x[r] if "layers" in path else x for x in ms]
+            ma, va, mb, vb = (x.to(dev, torch.float64) for x in rows)
+            ua = (ma / bc1) / (torch.sqrt(va / bc2) + 1e-8)
+            ub = (mb / bc1) / (torch.sqrt(vb / bc2) + 1e-8)
+            pa, pb, p = (x[i].detach().to(dev, torch.float64)
+                         for x in (ps_a, ps_b, p0))
+            bound = lr * torch.abs(ua - ub) + 2e-6 * (
+                torch.abs(p) + lr * (torch.abs(ub) + 1))
+            worst = max(worst, float(torch.max(torch.abs(pa - pb) - bound)))
+            i += 1
+    return worst
+
+
+def train_rank(mesh, x, steps):
+    """Phase 12 (f) on one rank (run by ``distributed.launch``):
+    ``compressed_psum`` of this rank's row of ``x`` and compressed training
+    of reduced TRAIN_MAIN.  Returns host values only."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import TrainConfig, get_config, reduced
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.models import Model
+    from repro_torch.optim import optimizers as opt_lib
+    from repro_torch.train import step as step_lib
+
+    dev = mesh.device
+    row = torch.from_numpy(x[mesh.rank]).to(dev)
+    got = step_lib.compressed_psum(row, mesh.group)
+    want = torch.from_numpy(x.mean(axis=0)).to(dev)
+    rel = float(torch.linalg.norm(got - want) / torch.linalg.norm(want))
+    cfg = reduced(get_config(TRAIN_MAIN))
+    model = Model(cfg, device=dev, seed=LM_SEED)
+    tcfg = TrainConfig(learning_rate=1e-2, warmup_steps=0, total_steps=40)
+    grads_fn = step_lib.build_compressed_grads(model, tcfg, mesh.group)
+    opt = opt_lib.adamw_init(model)
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=32, global_batch=8, seed=4)
+    losses = []
+    for i in range(steps):
+        b = {k: torch.from_numpy(v).to(dev)
+             for k, v in data.batch_at(i).items()}
+        g, m = grads_fn(model, b)
+        g, _ = opt_lib.clip_by_global_norm(g, 1.0)
+        opt_lib.adamw_update(g, opt, model, lr=1e-2)
+        losses.append(float(m["loss"]))
+    return dict(rank=mesh.rank, backend=mesh.backend, device=str(dev),
+                psum_rel_err=rel, losses=losses)
+
+
+def phase_lm_train(torch, np):
+    """Phase 12: LM training on the card (the module docstring)."""
+    import os
+    import tempfile
+    from repro_torch import configs
+    from repro_torch.core import distributed
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import Model
+    from repro_torch.models.params import (flat_params, state_from_reference,
+                                           state_to_reference)
+    from repro_torch.train import step as step_lib
+    from repro_torch.train.checkpoint import CheckpointManager
+
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 is on for float32 matmuls")
+    out = {}
+    cfg = configs.get_config(TRAIN_MAIN)
+
+    # (a) the trainer's main path at full width and depth
+    lm_free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, hist = train_mod.main([
+        "--arch", TRAIN_MAIN, "--steps", str(TRAIN_STEPS),
+        "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+        "--lr", str(TRAIN_LR), "--log-every", "5"])
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    model = state["params"]
+    check(model.device.type == "cuda", f"trained on {model.device}")
+    losses = [h["loss"] for h in hist]
+    check(len(hist) == TRAIN_STEPS, f"{len(hist)} of {TRAIN_STEPS} steps")
+    check(all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
+              for h in hist), "a loss or grad_norm is not finite")
+    first5, last5 = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    check(last5 < first5, f"loss did not fall: first five {first5:.4f}, "
+                          f"last five {last5:.4f}")
+    ms = [h["ms"] for h in hist]
+    steady = float(np.median(ms[1:]))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flop = 6.0 * model.n_params() * tokens
+    out["main"] = dict(
+        arch=TRAIN_MAIN, params=model.n_params(), batch=TRAIN_BATCH,
+        seq=TRAIN_SEQ, steps=TRAIN_STEPS, lr=TRAIN_LR, wall_s=wall,
+        first_step_ms=ms[0], median_step_ms=steady, step_ms=ms,
+        tokens_per_s=tokens / (steady / 1e3), flop_per_step=flop,
+        bound_ms=flop / OPS_PER_S * 1e3, peak_bytes=peak, losses=losses,
+        grad_norms=[h["grad_norm"] for h in hist],
+        first5_mean=first5, last5_mean=last5)
+    log(f"train {TRAIN_MAIN} (a): {model.n_params()} params, "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ}, {TRAIN_STEPS} steps in {wall:.1f} s: "
+        f"first step {ms[0]:.1f} ms, median {steady:.1f} ms "
+        f"({tokens / (steady / 1e3):.0f} tokens/s; bound "
+        f"{flop / OPS_PER_S * 1e3:.1f} ms = 6 N T / 67 TFLOP/s), peak "
+        f"{peak} bytes; loss {losses[0]:.4f} -> {losses[-1]:.4f} (first "
+        f"five {first5:.4f}, last five {last5:.4f})")
+    log(f"train {TRAIN_MAIN} (a) losses {[round(x, 4) for x in losses]}")
+    del state, model, hist
+    lm_free(torch)
+
+    # (b) one step, the same weights on the card and on the CPU
+    tcfg = configs.TrainConfig(learning_rate=TRAIN_CMP_LR, warmup_steps=0,
+                               total_steps=10)
+    card = Model(cfg, seed=LM_SEED)
+    cpu = card.copy_to("cpu")
+    rng = np.random.default_rng(LM_SEED)
+    toks = rng.integers(0, cfg.vocab, TRAIN_CPU_TOKENS).astype(np.int32)
+    batch = {"tokens": torch.from_numpy(toks),
+             "targets": torch.from_numpy(np.roll(toks, -1, axis=1)),
+             "mask": torch.ones(TRAIN_CPU_TOKENS)}
+    card_batch = {k: v.to(DEVICE) for k, v in batch.items()}
+    g_card, _ = train_grads(step_lib, card, tcfg, card_batch)
+    g_cpu, _ = train_grads(step_lib, cpu, tcfg, batch)
+    grad_err = leaf_rel_err(torch, g_card, g_cpu)
+    del g_card, g_cpu
+    p0 = [p.detach().clone() for p in flat_params(cpu)]
+    st_card, met_card = step_lib.build_train_step(card, tcfg)(
+        step_lib.init_state(card, tcfg), card_batch)
+    st_cpu, met_cpu = step_lib.build_train_step(cpu, tcfg)(
+        step_lib.init_state(cpu, tcfg), batch)
+    metric_err = {k: abs(float(met_card[k]) - float(met_cpu[k]))
+                  / max(abs(float(met_cpu[k])), 1e-30) for k in met_cpu}
+    excess = adamw_excess(torch, card, flat_params(card), flat_params(cpu),
+                          st_card["opt"], st_cpu["opt"], p0, TRAIN_CMP_LR, 1)
+    out["card_vs_cpu"] = dict(tokens=list(TRAIN_CPU_TOKENS),
+                              lr=TRAIN_CMP_LR, grad_rel_err=grad_err,
+                              metric_rel_err=metric_err,
+                              param_excess=excess)
+    log(f"train {TRAIN_MAIN} (b): one step {TRAIN_CPU_TOKENS[0]} x "
+        f"{TRAIN_CPU_TOKENS[1]}, card vs CPU: metrics max rel err "
+        f"{max(metric_err.values()):.3e} {metric_err} (tolerance "
+        f"{TRAIN_METRIC_TOL:.0e}); gradients {grad_err:.3e} of their "
+        f"leaf's range (tolerance {TRAIN_GRAD_TOL:.0e}); parameters beyond "
+        f"their m/v bound by {excess:.3e}")
+    for k in ("loss", "nll", "grad_norm"):
+        check(metric_err[k] <= TRAIN_METRIC_TOL,
+              f"card vs CPU {k}: {metric_err[k]:.3e}")
+    check(grad_err <= TRAIN_GRAD_TOL, f"card vs CPU gradients {grad_err:.3e}")
+    check(excess <= 0, f"card vs CPU parameters beyond the bound by "
+                       f"{excess:.3e}")
+    del st_cpu, cpu, p0, st_card
+    lm_free(torch)
+
+    # (c) remat at (a)'s batch: the same gradients, less memory
+    from repro_torch.data.synthetic import SyntheticLM
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                       global_batch=TRAIN_BATCH, seed=LM_SEED)
+    big = {k: torch.from_numpy(v).to(DEVICE)
+           for k, v in data.batch_at(0).items()}
+    remat = {}
+    base = None
+    for mode in ("none", "full", "dots"):
+        card.cfg = cfg.replace(remat=mode)
+        times = []
+        for call in range(2):           # the second call warm
+            g = None
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            (g, m), ms_ = timed(torch, lambda: train_grads(
+                step_lib, card, tcfg, big))
+            times.append(ms_)
+        peak_ = torch.cuda.max_memory_allocated()
+        remat[mode] = dict(peak_bytes=peak_, resident_bytes=before,
+                           activation_bytes=peak_ - before, ms=times[1],
+                           first_ms=times[0], loss=m["loss"])
+        if base is None:
+            base = g
+        else:
+            remat[mode]["grad_rel_err"] = leaf_rel_err(torch, g, base)
+        del g
+    card.cfg = cfg
+    del base
+    out["remat"] = remat
+    log(f"train {TRAIN_MAIN} (c): gradients of {TRAIN_BATCH} x {TRAIN_SEQ}"
+        f" under remat: " + "; ".join(
+            f"{k}: peak {v['peak_bytes']} bytes, {v['activation_bytes']} "
+            f"above the {v['resident_bytes']} resident before, "
+            f"{v['ms']:.1f} ms (first call {v['first_ms']:.1f} ms)"
+            + (f", vs none {v['grad_rel_err']:.3e}" if "grad_rel_err" in v
+               else "") for k, v in remat.items()))
+    for mode in ("full", "dots"):
+        check(remat[mode]["grad_rel_err"] <= TRAIN_REMAT_TOL,
+              f"remat {mode} gradients {remat[mode]['grad_rel_err']:.3e}")
+        check(remat[mode]["activation_bytes"] <
+              remat["none"]["activation_bytes"],
+              f"remat {mode} did not lower the peak")
+    lm_free(torch)
+
+    # (d) microbatch=TRAIN_MICRO against none: the accumulated gradients,
+    # and one step's parameters within what each one's m and v give
+    card.init(LM_SEED)
+    p0 = [p.detach().to("cpu", copy=True) for p in flat_params(card)]
+    runs = {}
+    for micro in (0, TRAIN_MICRO):
+        mcfg = configs.TrainConfig(learning_rate=TRAIN_CMP_LR,
+                                   warmup_steps=0, total_steps=10,
+                                   microbatch=micro)
+        card.init(LM_SEED)
+        g, _ = train_grads(step_lib, card, mcfg, big)
+        g = [x.to("cpu") for x in g]
+        st, met = step_lib.build_train_step(card, mcfg)(
+            step_lib.init_state(card, mcfg), big)
+        runs[micro] = dict(
+            grads=g, loss=float(met["loss"]),
+            params=[p.detach().to("cpu", copy=True)
+                    for p in flat_params(card)],
+            opt=_cpu_tree(st["opt"]))
+        del st, g
+        lm_free(torch)
+    a, b = runs[TRAIN_MICRO], runs[0]
+    grad_err = leaf_rel_err(torch, a["grads"], b["grads"])
+    diff = max(float(torch.max(torch.abs(x - y)))
+               for x, y in zip(a["params"], b["params"]))
+    over = sum(int(torch.sum(torch.abs(x - y) > TRAIN_MICRO_TOL))
+               for x, y in zip(a["params"], b["params"]))
+    excess = adamw_excess(torch, card, a["params"], b["params"], a["opt"],
+                          b["opt"], p0, TRAIN_CMP_LR, 1)
+    out["microbatch"] = dict(microbatch=TRAIN_MICRO, lr=TRAIN_CMP_LR,
+                             grad_rel_err=grad_err, max_param_diff=diff,
+                             params_over_1e_4=over, param_excess=excess,
+                             loss=[b["loss"], a["loss"]])
+    log(f"train {TRAIN_MAIN} (d): microbatch {TRAIN_MICRO} vs none, one "
+        f"step of {TRAIN_BATCH} x {TRAIN_SEQ} at lr {TRAIN_CMP_LR:g}: "
+        f"gradients {grad_err:.3e} of their leaf's range (tolerance "
+        f"{TRAIN_GRAD_TOL:.0e}); parameters max diff {diff:.3e}, {over} "
+        f"element(s) past {TRAIN_MICRO_TOL:.0e}, beyond their m/v bound by "
+        f"{excess:.3e}; loss {b['loss']:.6f} / {a['loss']:.6f}")
+    check(grad_err <= TRAIN_GRAD_TOL,
+          f"microbatch gradients differ {grad_err:.3e}")
+    check(excess <= 0, f"microbatch parameters beyond the bound by "
+                       f"{excess:.3e}")
+    del card, runs, big, p0
+    lm_free(torch)
+
+    # (e) crash and resume at reduced size
+    scratch = ROOT / "build"
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        cmd = [sys.executable, "-m", "repro_torch.launch.supervisor",
+               "--max-restarts", "2", "--",
+               sys.executable, "-m", "repro_torch.launch.train",
+               "--arch", TRAIN_MAIN, "--reduced", "--device", "cuda",
+               "--steps", "50", "--batch", "2", "--seq", "32",
+               "--ckpt-dir", tmp, "--ckpt-every", "20",
+               "--crash-at-step", "30"]
+        t0 = time.perf_counter()
+        run = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                             timeout=600)
+        sup_s = time.perf_counter() - t0
+        check(run.returncode == 0, f"supervisor exit {run.returncode}: "
+                                   f"{run.stdout[-2000:]}{run.stderr[-2000:]}")
+        for line in ("[train] injected crash at step 30",
+                     "[train] resumed from step 20", "[train] done"):
+            check(line in run.stdout, f"supervisor run lacks {line!r}")
+    rcfg = configs.reduced(cfg)
+    rt = configs.TrainConfig(learning_rate=1e-3)
+    rdata = SyntheticLM(vocab=rcfg.vocab, seq_len=32, global_batch=4, seed=9)
+
+    def run_steps(st, lo, hi):
+        fn = step_lib.build_train_step(st["params"], rt)
+        for i in range(lo, hi):
+            st, _ = fn(st, {k: torch.from_numpy(v).to(DEVICE)
+                            for k, v in rdata.batch_at(i).items()})
+        return st
+
+    # exact resume needs the same sums: deterministic kernels for the
+    # embedding's and the loss's index backward (atomics otherwise)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        mid, hi = TRAIN_RESUME
+        straight = run_steps(step_lib.init_state(
+            Model(rcfg, seed=2), rt), 0, hi)
+        s_mid = run_steps(step_lib.init_state(Model(rcfg, seed=2), rt),
+                          0, mid)
+        with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+            mgr = CheckpointManager(tmp)
+            mgr.save(s_mid, mid, blocking=True)
+            fresh = Model(rcfg, seed=3)
+            tree, step = mgr.restore(step_lib.abstract_state(fresh, rt))
+        resumed = run_steps(state_from_reference(fresh, tree), step, hi)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    resume_diff = max(float(torch.max(torch.abs(x.float() - y.float())))
+                      for x, y in zip(tree_tensors(state_to_reference(
+                          straight)), tree_tensors(state_to_reference(
+                              resumed))))
+    out["resume"] = dict(supervisor_s=sup_s, straight=hi, checkpoint=mid,
+                         max_diff=resume_diff)
+    log(f"train {TRAIN_MAIN} reduced (e): supervisor crash at 30, resumed "
+        f"from 20, done in {sup_s:.1f} s; {hi} straight steps vs {mid} + "
+        f"checkpoint + restore + {hi - mid}: max diff {resume_diff:.3e} "
+        f"(tolerance {TRAIN_RESUME_TOL:.0e})")
+    check(resume_diff <= TRAIN_RESUME_TOL,
+          f"resumed state differs by {resume_diff:.3e}")
+
+    # (f) int8 compressed gradients on TRAIN_RANKS ranks over gloo
+    x = (np.random.default_rng(LM_SEED).standard_normal(
+        (TRAIN_RANKS, TRAIN_COMPRESS_ROWS)) * 0.02).astype(np.float32)
+    t0 = time.perf_counter()
+    ranks = distributed.launch(train_rank, TRAIN_RANKS, x,
+                               TRAIN_COMPRESS_STEPS, device=DEVICE)
+    comp_s = time.perf_counter() - t0
+    losses = ranks[0]["losses"]
+    check(all(r["losses"] == losses for r in ranks),
+          "the ranks' losses differ")
+    rel = max(r["psum_rel_err"] for r in ranks)
+    out["compression"] = dict(ranks=TRAIN_RANKS, backend=ranks[0]["backend"],
+                              psum_rel_err=rel, losses=losses, wall_s=comp_s)
+    log(f"train (f): {TRAIN_RANKS} ranks over {ranks[0]['backend']} on "
+        f"{ranks[0]['device']}: compressed_psum of {TRAIN_COMPRESS_ROWS} "
+        f"values vs the mean, rel err {rel:.3e} (limit 0.05); compressed "
+        f"training of reduced {TRAIN_MAIN}, loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f} in {TRAIN_COMPRESS_STEPS} steps, {comp_s:.1f} s")
+    check(rel < 0.05, f"compressed_psum rel err {rel:.3e}")
+    check(losses[-1] < losses[0] - 0.3,
+          f"compressed training: {losses[0]:.4f} -> {losses[-1]:.4f}")
+    return out
+
+
 def parse_args(argv):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--times-only", action="store_true",
@@ -2795,6 +3236,9 @@ def main(argv=None):
     t0 = time.perf_counter()
     lm = phase_lm(torch, np)
     log(f"phase 11 (LM serving) in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    lm_train = phase_lm_train(torch, np)
+    log(f"phase 12 (LM training) in {time.perf_counter() - t0:.1f} s")
     worst["wavefront_lanes"] = max(worst["wavefront_lanes"],
                                    worst["shard_forms"]["wavefront_lanes"])
     worst["bloom_lanes"] = max(worst["bloom_lanes"],
@@ -2851,6 +3295,7 @@ def main(argv=None):
         kernels.append(entry)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"lm_serving": lm}), flush=True)
+    print(json.dumps({"lm_training": lm_train}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

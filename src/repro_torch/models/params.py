@@ -10,7 +10,8 @@ A model is described by a *spec tree*: nested dicts whose leaves are
   * seeded initialisation from an explicit ``torch.Generator``;
   * abstract tensors on the ``meta`` device (nothing allocated);
   * the weight carry-across from the reference's stacked tree
-    (``from_reference``) and back (``to_reference_tree``).
+    (``from_reference``) and back (``to_reference_tree``), and of a
+    whole train state (``state_from_reference``, ``state_to_reference``).
 
 Logical axis names used across the zoo:
   "embed"   — d_model dim
@@ -216,27 +217,35 @@ def _count_leaves(tree) -> int:
     return 1
 
 
+def _as_tensor(x) -> torch.Tensor:
+    """A reference leaf as a tensor: torch tensors as they are, numpy
+    arrays copied (bfloat16 read through float32, which holds every
+    bfloat16 value exactly, and returned as bfloat16)."""
+    if isinstance(x, torch.Tensor):
+        return x
+    arr = np.asarray(x)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(arr))
+
+
 def from_reference(tree_module: nn.Module, tree: dict):
-    """Load the reference's parameter tree (nested dicts of numpy arrays,
-    per-layer leaves stacked ``(n_reps, ...)``) into ``tree_module``.
+    """Load the reference's parameter tree (nested dicts of numpy arrays
+    or tensors, per-layer leaves stacked ``(n_reps, ...)``) into
+    ``tree_module``.
 
     Shapes must match exactly and the tree must hold exactly the spec's
-    leaves.  bfloat16 arrays are read through float32, which holds every
-    bfloat16 value exactly.  ``tree_module`` is a ``ParamTree`` of
-    ``tree_module.spec``."""
+    leaves.  ``tree_module`` is a ``ParamTree`` of ``tree_module.spec``."""
     specs = list(leaves(tree_module.spec))
     if _count_leaves(tree) != len(specs):
         raise ValueError(f"reference tree has {_count_leaves(tree)} leaves, "
                          f"the spec {len(specs)}")
     with torch.no_grad():
         for path, p in specs:
-            arr = np.asarray(_lookup(tree, path))
-            if tuple(arr.shape) != p.shape:
+            src = _as_tensor(_lookup(tree, path))
+            if tuple(src.shape) != p.shape:
                 raise ValueError(f"{'/'.join(path)}: reference shape "
-                                 f"{arr.shape}, spec {p.shape}")
-            if arr.dtype.name == "bfloat16":
-                arr = arr.astype(np.float32)
-            src = torch.from_numpy(np.array(arr))
+                                 f"{tuple(src.shape)}, spec {p.shape}")
             targets = _targets(tree_module, path)
             if "layers" in path:
                 for r, t in enumerate(targets):
@@ -260,3 +269,60 @@ def to_reference_tree(tree_module: nn.Module) -> dict:
             node = node.setdefault(seg, {})
         node[path[-1]] = val
     return out
+
+
+def stacked_leaves(tree_module: nn.Module):
+    """(path, stacked ``Param``, its tensors) for every leaf of
+    ``tree_module.spec`` in the reference's leaf order (keys sorted at
+    each level); a stacked leaf's tensors are its repetitions in turn."""
+    return [(path, p, _targets(tree_module, path))
+            for path, p in leaves(tree_module.spec)]
+
+
+def flat_params(tree_module: nn.Module) -> List[torch.Tensor]:
+    """The parameters in ``stacked_leaves`` order: the order in which the
+    train step and the optimizers take gradients."""
+    return [t for _, _, ts in stacked_leaves(tree_module) for t in ts]
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def _host(x: torch.Tensor) -> torch.Tensor:
+    return x.detach().to("cpu", copy=True)
+
+
+def state_to_reference(state: dict) -> dict:
+    """The reference's tree of a train state ``{"params": Model, "opt",
+    "step"}`` as new CPU tensors (copies, which later steps do not
+    change) in the reference's layout and dtypes: parameters stacked
+    ``(n_reps, ...)``, the optimizer state (already stacked) and the
+    step."""
+    params: dict = {}
+    for path, _, ts in stacked_leaves(state["params"]):
+        node = params
+        for seg in path[:-1]:
+            node = node.setdefault(seg, {})
+        node[path[-1]] = torch.stack([t.detach() for t in ts]).cpu() \
+            if "layers" in path else _host(ts[0])
+    return {"params": params, "opt": _tree_map(_host, state["opt"]),
+            "step": _host(state["step"])}
+
+
+def state_from_reference(model: nn.Module, ref_state: dict) -> dict:
+    """A train state on ``model``'s device from the reference's tree
+    ``{"params", "opt", "step"}`` (numpy arrays, bfloat16 ones included,
+    or tensors): the parameters are loaded into ``model``; the optimizer
+    state (AdamW's ``m``/``v``, or Adafactor's ``(vr, vc)`` tuples and
+    bfloat16 ``m``; ``count``) and the step keep the reference's stacked
+    shapes and dtypes."""
+    from_reference(model, ref_state["params"])
+    dev = next(model.parameters()).device
+    move = lambda x: _as_tensor(x).to(dev)
+    return {"params": model, "opt": _tree_map(move, ref_state["opt"]),
+            "step": move(ref_state["step"])}

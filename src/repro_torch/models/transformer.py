@@ -15,15 +15,18 @@ Sub-block kinds:
   hymba  — parallel attn + mamba heads on the same normed input, mean-fused
            (arXiv:2411.13676)
 
-Not ported in this module yet: ``remat`` (``cfg.remat``) and
-``_constrain_dp``'s mesh constraint are training and mesh features;
-``_constrain_dp`` returns its input, as the reference does outside a mesh.
+``remat`` (``cfg.remat``, or the ``remat`` argument) recomputes each
+repetition's activations in the backward pass: ``"full"`` keeps only the
+unit's inputs, ``"dots"`` keeps the products' outputs (``mm``, ``bmm``,
+``addmm``: what the reference's ``checkpoint_dots`` keeps of its
+``dot_general``s) and recomputes the rest.
 """
 from __future__ import annotations
 
 from typing import List
 
 import torch
+from torch.utils import checkpoint as ckpt_lib
 
 from . import attention as attn_lib
 from . import layers, moe as moe_lib, ssm as ssm_lib
@@ -288,8 +291,8 @@ def apply_sub(kind: str, p, x, cfg, *, positions, mode: str, cache=None,
 
 def _constrain_dp(x, cfg):
     """The reference pins the residual stream's batch dim to the DP mesh
-    axes here; outside a mesh it returns its input, and so does the port
-    until the mesh is ported (ROADMAP A14b)."""
+    axes here; outside a mesh it returns its input.  The port runs the
+    model on one device per process, so it returns its input."""
     return x
 
 
@@ -328,16 +331,47 @@ def apply_unit(up, x, cfg, *, positions, mode, cache=None, pos=None,
     return x, new_cache, aux
 
 
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``remat="dots"``."""
+    return (ckpt_lib.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt_lib.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_unit(remat: str, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` with its activations recomputed in the
+    backward pass as ``remat`` says ("full" or "dots")."""
+    if remat == "full":
+        return ckpt_lib.checkpoint(fn, *args, use_reentrant=False, **kwargs)
+    if remat == "dots":
+        return ckpt_lib.checkpoint(
+            fn, *args, use_reentrant=False,
+            context_fn=lambda: ckpt_lib.create_selective_checkpoint_contexts(
+                _save_dots), **kwargs)
+    raise ValueError(f"unknown remat {remat!r}")
+
+
 def apply_stack(units, x, cfg, *, positions, mode, cache=None, pos=None,
-                memory=None, decoder=True):
+                memory=None, decoder=True, remat=None):
     """Run the repeating unit once per repetition (``units``: the
-    ModuleList, or a list of per-repetition parameter trees)."""
+    ModuleList, or a list of per-repetition parameter trees).  ``remat``
+    defaults to ``cfg.remat``; it changes what autograd keeps, not the
+    values, and applies only where autograd records."""
+    remat = remat if remat is not None else cfg.remat
+    recompute = remat not in (None, "none") and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache = [] if cache is not None else None
     for r, up in enumerate(units):
-        x, nc, a = apply_unit(up, x, cfg, positions=positions, mode=mode,
-                              cache=cache[r] if cache is not None else None,
-                              pos=pos, memory=memory, decoder=decoder)
+        kw = dict(positions=positions, mode=mode,
+                  cache=cache[r] if cache is not None else None, pos=pos,
+                  memory=memory, decoder=decoder)
+        if recompute:
+            x, nc, a = _remat_unit(remat, apply_unit, up, x, cfg, **kw)
+        else:
+            x, nc, a = apply_unit(up, x, cfg, **kw)
         aux = aux + a
         if new_cache is not None:
             new_cache.append(nc)
@@ -375,7 +409,7 @@ def encode(params, cfg, enc_embeds):
 
 
 def forward(params, cfg, tokens, *, mode: str = "train", cache=None,
-            pos=None, prefix_embeds=None, enc_embeds=None):
+            pos=None, prefix_embeds=None, enc_embeds=None, remat=None):
     """Top-level forward.
 
     tokens (B, S) integer; prefix_embeds (B, P, d) for VLM; enc_embeds
@@ -399,7 +433,7 @@ def forward(params, cfg, tokens, *, mode: str = "train", cache=None,
 
     x, new_cache, aux = apply_stack(
         params["layers"], x, cfg, positions=positions, mode=mode,
-        cache=cache, pos=pos, memory=memory)
+        cache=cache, pos=pos, memory=memory, remat=remat)
     x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if cfg.tie_embeddings:
         logits = layers.unembed(params["embed"], x)

@@ -25,9 +25,16 @@ full-width xlstm layers, about 2.8 GB):
      every weight moves by a relative 1e-7;
   5. whisper-small: ``sinusoidal_positions(1500, 768)`` of the two
      packages, and the port against the reference at full width, 1 and 2
-     layers.
+     layers;
+  6. the train twins' tiny config (``tests/test_torch_train.py``), at the
+     reference's state after one AdamW step: how far the reference's
+     gradients move when every weight moves by a relative 1e-7 and 3e-7,
+     and the port's gradients against the reference's there;
+  7. llama4-maverick under ``reduced`` (bfloat16): the reference's jitted
+     gradients against its op-by-op gradients.
 
-Every figure is max |a - b| / max |b| over the logits compared.
+Every figure is max |a - b| / max |b| over the logits compared, or over
+a gradient leaf (the largest over the leaves).
 """
 import functools
 import sys
@@ -195,6 +202,58 @@ def whisper_positions():
               f"{rel(p, r):.3e}", flush=True)
 
 
+def _worst(a, b):
+    return max(rel(x, y) for x, y in zip(jax.tree.leaves(a),
+                                         jax.tree.leaves(b)))
+
+
+def train_grad_sensitivity():
+    import test_torch_train as tt
+    from lm_twins import stacked_grads
+    from repro.data.synthetic import SyntheticLM
+    from repro.train import step as ref_step
+    from repro_torch.models.params import state_from_reference
+    from repro_torch.train import step as step_lib
+
+    rm, rt, pm, pt = tt._pair("adamw", 0)
+    rs = ref_step.init_state(rm, jax.random.PRNGKey(0), rt)
+    data = SyntheticLM(vocab=256, seq_len=32, global_batch=8, seed=2)
+    rs, _ = jax.jit(ref_step.build_train_step(rm, rt))(
+        rs, {k: j(v) for k, v in data.batch_at(0).items()})
+    b = data.batch_at(1)
+    grad = jax.jit(jax.grad(
+        lambda p: ref_step._loss_fn(rm, rt, p, {k: j(v) for k, v in
+                                                b.items()})[0]))
+    want = grad(rs["params"])
+    rng = np.random.default_rng(0)
+    for eps in (1e-7, 3e-7):
+        moved = jax.tree.map(lambda x: x * (1 + eps * rng.standard_normal(
+            x.shape).astype(np.float32)), rs["params"])
+        print(f"train twin config after one step: reference gradients move "
+              f"{_worst(grad(moved), want):.3e} for a relative {eps:g} move "
+              f"of every weight", flush=True)
+    state_from_reference(pm, tree_np(rs))
+    g, _ = step_lib.grads_of(pm, pt, {k: t(v) for k, v in b.items()})
+    print(f"train twin config after one step: port gradients vs reference "
+          f"{_worst(stacked_grads(pm, g), want):.3e}", flush=True)
+
+
+def llama4_grad_jit_vs_op_by_op():
+    from repro.configs import TrainConfig
+    from repro.train import step as ref_step
+    _, rm, rp, cfg, _ = model_pair("llama4-maverick-400b-a17b")
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab, (2, 32)).astype(np.int32)
+    b = {"tokens": j(toks), "targets": j(np.roll(toks, -1, axis=1)),
+         "mask": j(np.ones((2, 32), np.float32))}
+    loss = lambda p: ref_step._loss_fn(rm, TrainConfig(), p, b)[0]
+    jitted = jax.jit(jax.grad(loss))(rp)
+    with jax.disable_jit():
+        eager = jax.grad(loss)(rp)
+    print(f"llama4-maverick reduced: reference gradients jitted vs op by "
+          f"op {_worst(eager, jitted):.3e}", flush=True)
+
+
 def main():
     torch.set_num_threads(4)
     xlstm_reduced_states()
@@ -206,6 +265,8 @@ def main():
     for layers in (1, 2):
         sensitivity("whisper-small", layers)
     whisper_positions()
+    train_grad_sensitivity()
+    llama4_grad_jit_vs_op_by_op()
     return 0
 
 

@@ -148,3 +148,33 @@ def model_pair(arch, reduce=True, seed=0):
     rp = rm.init(jax.random.PRNGKey(seed))
     pm = load(Model(cfg, device="cpu"), tree_np(rp))
     return rcfg, rm, rp, cfg, pm
+
+
+def flat_grads(model, tree):
+    """The reference's stacked gradient tree ``tree`` (numpy) as the port's
+    gradient list, in ``params.flat_params(model)`` order."""
+    from repro_torch.models.params import stacked_leaves
+    out = []
+    for path, _, ts in stacked_leaves(model):
+        arr = tree
+        for seg in path:
+            arr = arr[seg]
+        rows = [arr[r] for r in range(len(ts))] if "layers" in path \
+            else [arr]
+        out.extend(t(x) for x in rows)
+    return out
+
+
+def stacked_grads(model, grads):
+    """The port's gradient list as the reference's stacked tree (numpy)."""
+    from repro_torch.models.params import stacked_leaves
+    out: dict = {}
+    i = 0
+    for path, _, ts in stacked_leaves(model):
+        gs = [to_np(g) for g in grads[i:i + len(ts)]]
+        i += len(ts)
+        node = out
+        for seg in path[:-1]:
+            node = node.setdefault(seg, {})
+        node[path[-1]] = np.stack(gs) if "layers" in path else gs[0]
+    return out

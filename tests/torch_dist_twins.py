@@ -287,3 +287,65 @@ def same_checkpoints(got: list, want: list) -> None:
         assert a["states"].dtype == np.uint32
         assert np.array_equal(a["states"], b["states"]), a["level"]
         assert np.array_equal(a["counts"], b["counts"]), a["level"]
+
+
+# ------------------------------------------- int8 gradient compression (LM)
+
+def compressed_psum_rows(mesh, x):
+    """``train.step.compressed_psum`` of row ``mesh.rank`` of ``x`` over
+    the ranks: every rank's result (the mean of the rows)."""
+    import torch
+    from repro_torch.train.step import compressed_psum
+    return compressed_psum(torch.from_numpy(x[mesh.rank]),
+                           mesh.group).numpy()
+
+
+def compressed_training(mesh, cfg_kw, ref_params, steps, lr=1e-2):
+    """The port's half of ``tests/test_grad_compression.py::
+    test_compressed_training_still_learns`` from the reference's
+    parameters ``ref_params``: the compressed gradients of the first step
+    and each stacked leaf's shared quantisation scale (by key), and every
+    step's loss."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import ModelConfig, TrainConfig
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.models import Model
+    from repro_torch.models.params import from_reference, stacked_leaves
+    from repro_torch.optim import optimizers as opt_lib
+    from repro_torch.train import step as step_lib
+
+    torch.set_num_threads(1)
+    scales = []
+    psum = step_lib.compressed_psum
+
+    def recording_psum(g, group=None):
+        gmax = torch.max(torch.abs(g.float()))
+        dist.all_reduce(gmax, op=dist.ReduceOp.MAX, group=group)
+        scales.append(max(float(gmax), 1e-12) / 127.0)
+        return psum(g, group)
+
+    step_lib.compressed_psum = recording_psum
+    model = Model(ModelConfig(**cfg_kw), device="cpu")
+    from_reference(model, ref_params)
+    tcfg = TrainConfig(learning_rate=lr, warmup_steps=0, total_steps=40)
+    grads_fn = step_lib.build_compressed_grads(model, tcfg, mesh.group)
+    opt = opt_lib.adamw_init(model)
+    data = SyntheticLM(vocab=cfg_kw["vocab"], seq_len=32, global_batch=8,
+                       seed=4)
+    losses, first = [], None
+    for i in range(steps):
+        b = {k: torch.from_numpy(v) for k, v in data.batch_at(i).items()}
+        g, m = grads_fn(model, b)
+        if first is None:
+            step_lib.compressed_psum = psum
+            first, j = {}, 0
+            for leaf, (path, _, ts) in enumerate(stacked_leaves(model)):
+                rows = [x.numpy() for x in g[j:j + len(ts)]]
+                j += len(ts)
+                first["/".join(path)] = (np.stack(rows) if "layers" in path
+                                         else rows[0], scales[leaf])
+        g, _ = opt_lib.clip_by_global_norm(g, 1.0)
+        opt_lib.adamw_update(g, opt, model, lr=lr)
+        losses.append(float(m["loss"]))
+    return first, losses
