@@ -144,6 +144,25 @@ Phases, each fatal on failure (non-zero exit, no result line):
      the compressed reduced-qwen3 training's loss falling by 0.3 in 30
      steps.  ``{"lm_training": {...}}`` before the device line.  No
      kernel: training reaches no Pallas kernel in the reference.
+ 13. dry run: ``launch.dryrun``'s predictions against the card, and
+     production-mesh cells.  (a) In a subprocess (the dry run's fake
+     process group is process-wide), ``dryrun.predict_step`` runs one
+     train step of phase 12's configuration (qwen3-0.6b at full width
+     and depth, AdamW, 8 x 512 tokens, float32) on meta tensors on a 1x1
+     mesh and predicts the state's bytes, the step's FLOPs and its peak
+     bytes; then here one real step: the ``torch.cuda.memory_allocated``
+     growth over building the model and ``init_state`` must equal the
+     predicted state bytes exactly, ``FlopCounterMode`` over the step
+     the predicted FLOPs exactly, and the step's peak above what was
+     allocated before must lie within DRY_PEAK_TOL of the prediction.
+     (b) Started first and run alongside (a): ``python -m
+     repro_torch.launch.dryrun`` on the 16x16 production mesh (a fake
+     group of 512 ranks) for DRY_ARCHS x DRY_SHAPES at full width (the
+     MoE dispatch of granite-moe runs sharded); every cell must be
+     ``ok``; per-device bytes, FLOPs, wire bytes, whether the peak fits
+     this card, and seconds.  ``{"dryrun": {...}}`` before the device
+     line.  No kernel: the dry run reaches no Pallas kernel in the
+     reference.
 
 The second-to-last line is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or ``repro``.
@@ -586,6 +605,15 @@ TRAIN_RESUME_TOL = 1e-6
 TRAIN_RANKS = 2
 TRAIN_COMPRESS_ROWS = 1 << 20
 TRAIN_COMPRESS_STEPS = 30
+# phase 13: (a) predicts phase 12's step (TRAIN_MAIN at TRAIN_BATCH x
+# TRAIN_SEQ) and holds a real step to the prediction: state bytes and
+# FLOPs exactly, the peak within DRY_PEAK_TOL (relative); (b) runs the
+# production-mesh cells DRY_ARCHS x DRY_SHAPES (granite-moe's decode, not
+# asked for, comes with the product at a few seconds)
+DRY_PEAK_TOL = 0.05
+DRY_ARCHS = ("qwen3-0.6b", "granite-moe-1b-a400m")
+DRY_SHAPES = ("train_4k", "decode_32k")
+DRY_TIMEOUT_S = 600
 KERNELS = {
     "wavefront": ("src/repro_torch/kernels/wavefront/csrc/wavefront.cu",
                   "src/repro/kernels/wavefront/kernel.py:47"),
@@ -3138,6 +3166,153 @@ def phase_lm_train(torch, np):
     return out
 
 
+# phase 13 (a): the prediction, in a process of its own (the dry run's
+# fake process group is process-wide); argv[1] is [arch, lr, {name:
+# [shape, dtype]}] of the real step's batch
+DRY_PREDICT = """
+import json, sys, torch
+from repro_torch import configs
+from repro_torch.launch import dryrun
+arch, lr, shapes = json.loads(sys.argv[1])
+batch = {k: torch.empty(shape, dtype=getattr(torch, dt), device="meta")
+         for k, (shape, dt) in shapes.items()}
+pred = dryrun.predict_step(configs.get_config(arch),
+                           configs.TrainConfig(learning_rate=lr), batch)
+print("PREDICTION " + json.dumps(pred), flush=True)
+"""
+
+
+def dry_env():
+    import os
+    return dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+
+
+def dry_cells(cells, cells_dir):
+    """Phase 13 (b): wait for the production-mesh cells and read them."""
+    stdout, stderr = cells.communicate(timeout=DRY_TIMEOUT_S)
+    check(cells.returncode == 0, f"launch.dryrun exit {cells.returncode}: "
+                                 f"{stdout[-2000:]}{stderr[-2000:]}")
+    got = {}
+    for arch in DRY_ARCHS:
+        for shape in DRY_SHAPES:
+            tag = f"{arch}__{shape}__16x16"
+            rec = json.loads((cells_dir / f"{tag}.json").read_text())
+            check(rec["status"] == "ok",
+                  f"dry run {tag}: {rec['status']} "
+                  f"{rec.get('error', rec.get('reason', ''))}")
+            mem = rec["memory"]
+            got[tag] = dict(
+                argument_bytes=mem["argument_bytes"],
+                peak_bytes=mem["peak_bytes"], temp_bytes=mem["temp_bytes"],
+                output_bytes=mem["output_bytes"],
+                flops_per_device=rec["flops_per_device"],
+                op_bytes_per_device=rec["op_bytes_per_device"],
+                wire_bytes=rec["collectives_scaled"]["wire_bytes"],
+                collective_ops=rec["collective_ops"], fits=rec["fits"],
+                trace_s=rec["trace_sec"], wall_s=rec["wall_sec"])
+            log(f"dry run (b) {tag}: per device {mem['argument_bytes']} "
+                f"argument bytes, peak {mem['peak_bytes']} bytes (fits "
+                f"this card: {rec['fits']}), {rec['flops_per_device']:.4e} "
+                f"FLOPs, {rec['collectives_scaled']['wire_bytes']:.4e} wire "
+                f"bytes in {rec['collective_ops']}, traced in "
+                f"{rec['trace_sec']} s ({rec['wall_sec']} s the cell)")
+            check(rec["flops_per_device"] > 0, f"{tag}: no FLOPs")
+    return got
+
+
+def phase_dryrun(torch, np):
+    """Phase 13: the dry run (the module docstring)."""
+    import shutil
+    import tempfile
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch import configs
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.models import Model
+    from repro_torch.train import step as step_lib
+
+    out = {}
+    scratch = ROOT / "build"
+    scratch.mkdir(exist_ok=True)
+    cells_dir = pathlib.Path(tempfile.mkdtemp(dir=scratch))
+    t_cells = time.perf_counter()
+    cells = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         ",".join(DRY_ARCHS), "--shape", ",".join(DRY_SHAPES), "--out",
+         str(cells_dir)], env=dry_env(), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        # (a) the prediction, then the real step it predicts
+        cfg = configs.get_config(TRAIN_MAIN)
+        tcfg = configs.TrainConfig(learning_rate=TRAIN_LR)
+        host = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                           global_batch=TRAIN_BATCH,
+                           seed=LM_SEED).batch_at(0)
+        shapes = {k: [list(v.shape), v.dtype.name] for k, v in host.items()}
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-c", DRY_PREDICT,
+             json.dumps([TRAIN_MAIN, TRAIN_LR, shapes])], env=dry_env(),
+            capture_output=True, text=True, timeout=DRY_TIMEOUT_S)
+        predict_s = time.perf_counter() - t0
+        check(run.returncode == 0, f"predict_step exit {run.returncode}: "
+                                   f"{run.stdout[-2000:]}{run.stderr[-2000:]}")
+        line = [ln for ln in run.stdout.splitlines()
+                if ln.startswith("PREDICTION ")][-1]
+        pred = json.loads(line[len("PREDICTION "):])
+
+        lm_free(torch)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        model = Model(cfg, seed=LM_SEED)
+        state = step_lib.init_state(model, tcfg)
+        torch.cuda.synchronize()
+        state_bytes = torch.cuda.memory_allocated() - before
+        batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in host.items()}
+        fn = step_lib.build_train_step(model, tcfg)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with FlopCounterMode(display=False) as fc:
+            state, met = fn(state, batch)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() - before
+        flops = fc.get_total_flops()
+        loss = float(met["loss"])
+        del state, model, batch, met, fn
+        lm_free(torch)
+        peak_err = (peak - pred["peak_bytes"]) / pred["peak_bytes"]
+        out["predict"] = dict(
+            arch=TRAIN_MAIN, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+            predicted=pred, predict_s=predict_s, state_bytes=state_bytes,
+            flops=flops, peak_bytes=peak, peak_rel_err=peak_err,
+            step_ms=step_ms, loss=loss)
+        log(f"dry run (a) {TRAIN_MAIN} at {TRAIN_BATCH} x {TRAIN_SEQ}: "
+            f"predicted on meta tensors in {predict_s:.1f} s (traced "
+            f"{pred['trace_sec']} s): state {pred['state_bytes']} bytes, "
+            f"{pred['flops']:.0f} FLOPs, peak {pred['peak_bytes']} bytes; "
+            f"the card: state {state_bytes} bytes, {flops} FLOPs, peak "
+            f"{peak} bytes above the {before} allocated before "
+            f"({peak_err:+.4%}), one step {step_ms:.1f} ms under "
+            f"FlopCounterMode, loss {loss:.4f}")
+        check(np.isfinite(loss), f"dry run (a): loss {loss}")
+        check(state_bytes == pred["state_bytes"],
+              f"state bytes {state_bytes} != predicted {pred['state_bytes']}")
+        check(flops == pred["flops"],
+              f"step FLOPs {flops} != predicted {pred['flops']}")
+        check(abs(peak_err) <= DRY_PEAK_TOL,
+              f"peak {peak} bytes is {peak_err:+.2%} off the predicted "
+              f"{pred['peak_bytes']} (tolerance {DRY_PEAK_TOL:.0%})")
+        # (b) the production-mesh cells, started first
+        out["cells"] = dry_cells(cells, cells_dir)
+        out["cells_wall_s"] = time.perf_counter() - t_cells
+    finally:
+        if cells.poll() is None:
+            cells.kill()
+            cells.wait()
+        shutil.rmtree(cells_dir, ignore_errors=True)
+    return out
+
+
 def parse_args(argv):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--times-only", action="store_true",
@@ -3239,6 +3414,10 @@ def main(argv=None):
     t0 = time.perf_counter()
     lm_train = phase_lm_train(torch, np)
     log(f"phase 12 (LM training) in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    dry = phase_dryrun(torch, np)
+    dry["phase_s"] = time.perf_counter() - t0
+    log(f"phase 13 (dry run) in {dry['phase_s']:.1f} s")
     worst["wavefront_lanes"] = max(worst["wavefront_lanes"],
                                    worst["shard_forms"]["wavefront_lanes"])
     worst["bloom_lanes"] = max(worst["bloom_lanes"],
@@ -3296,6 +3475,7 @@ def main(argv=None):
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"lm_serving": lm}), flush=True)
     print(json.dumps({"lm_training": lm_train}), flush=True)
+    print(json.dumps({"dryrun": dry}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

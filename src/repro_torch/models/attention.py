@@ -11,6 +11,14 @@ block wipes through ``corr = exp(m - m_new)``, where ``-inf`` would give NaN.
 GQA is computed with grouped einsums (no materialised head repetition):
 q is viewed as (B, S, K, G, hd) with H = K*G.
 
+On a mesh (DTensors), training and prefill attention run on each rank's
+shards (``_on_shards``): q, k and v are laid out with the batch over the
+data-parallel axes and the heads over the model axis where K divides
+into it (``_grouped``), and the blocks are computed locally, with no
+collective (the reference's compiler partitions them the same way).
+Decode reads a cache whose sequence is sharded over the model axis, so
+it runs on DTensors with q's heads replicated there (``layers.placed``).
+
 Cache writes are out of place, like the reference's: each returns new
 tensors and leaves its inputs as they were.  A write at ``pos >=
 cache_len`` lands on the last slot, as ``lax.dynamic_update_slice``
@@ -21,6 +29,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from .params import Param
 from . import layers
@@ -75,6 +84,25 @@ def _mask(qpos, kpos, causal: bool, window: Optional[int]):
     return mask
 
 
+def _grouped(x, groups: int):
+    """``x`` (B, ..., N, hd) in a layout that views as (B, ..., groups,
+    N // groups, hd): on a mesh the batch over the DP axes and the model
+    axis on the head dim where ``groups`` divides into it, else replicated
+    (a kv-head count the axis does not divide leaves k and v replicated,
+    ``rules.spec_for``'s fallback, so q's heads are gathered: XLA
+    reshards there on its own)."""
+    return layers.placed(x, model=-2, dp=0, groups=groups)
+
+
+def _on_shards(attend, q, k, v, **kw):
+    """``attend(q, k, v, **kw)`` on each rank's shards, laid out by
+    ``_grouped``: attention is independent per batch row and per kv-head
+    group, so a rank's blocks need no other rank's."""
+    kh = k.shape[2]
+    q, k, v = (_grouped(x, kh) for x in (q, k, v))
+    return layers.sharded_like(attend(*layers.shards(q, k, v), **kw), q)
+
+
 # ----------------------------------------------------- chunked online softmax
 
 def chunked_attention(q, k, v, *, causal: bool, chunk: int,
@@ -85,6 +113,10 @@ def chunked_attention(q, k, v, *, causal: bool, chunk: int,
     Double-chunked flash schedule; all-mask blocks still execute, as in the
     reference.
     """
+    if isinstance(q, DTensor):
+        return _on_shards(chunked_attention, q, k, v, causal=causal,
+                          chunk=chunk, window=window, q_offset=q_offset,
+                          k_offset=k_offset)
     b, sq, h, hd = q.shape
     skv, kh = k.shape[1], k.shape[2]
     g = h // kh
@@ -129,6 +161,9 @@ def chunked_attention(q, k, v, *, causal: bool, chunk: int,
 def full_attention(q, k, v, *, causal: bool, window: Optional[int] = None,
                    q_offset=0, k_offset=0):
     """Reference unchunked attention (short sequences / encoder / tests)."""
+    if isinstance(q, DTensor):
+        return _on_shards(full_attention, q, k, v, causal=causal,
+                          window=window, q_offset=q_offset, k_offset=k_offset)
     b, sq, h, hd = q.shape
     kh = k.shape[2]
     g = h // kh
@@ -158,7 +193,7 @@ def decode_attention(q, k_cache, v_cache, pos, *,
     smax, kh = k_cache.shape[1], k_cache.shape[2]
     g = h // kh
     scale = hd ** -0.5
-    qg = q.reshape(b, kh, g, hd).float() * scale
+    qg = layers.placed(q, dp=0).reshape(b, kh, g, hd).float() * scale
     s = torch.einsum("bkgx,bckx->bkgc", qg, k_cache.float())
     kpos = torch.arange(smax, device=q.device)
     mask = kpos[None, :] <= pos[:, None]
@@ -175,8 +210,18 @@ def update_cache(k_cache, v_cache, k_new, v_new, pos):
     """Write k/v_new (B,1,K,hd) at per-slot positions pos (B,); a position
     past the end clamps to the last slot (``dynamic_update_slice``)."""
     smax = k_cache.shape[1]
-    rows = torch.arange(k_cache.shape[0], device=k_cache.device)
     idx = torch.clamp(pos.long(), 0, smax - 1)
+    if isinstance(k_cache, DTensor):
+        # on a mesh the sequence is sharded (``rules.cache_shardings``): a
+        # select over it writes each rank's own rows, gathering nothing,
+        # and the new cache keeps the old one's layout
+        hit = (torch.arange(smax, device=idx.device)[None, :]
+               == idx[:, None])[:, :, None, None]
+        return tuple(torch.where(
+            hit, layers.placed(new, dp=0).to(c.dtype), c).redistribute(
+                c.device_mesh, c.placements)
+            for c, new in ((k_cache, k_new), (v_cache, v_new)))
+    rows = torch.arange(k_cache.shape[0], device=k_cache.device)
     k_cache = k_cache.index_put((rows, idx), k_new[:, 0].to(k_cache.dtype))
     v_cache = v_cache.index_put((rows, idx), v_new[:, 0].to(v_cache.dtype))
     return k_cache, v_cache
@@ -194,7 +239,7 @@ def decode_window_attention(q, k_cache, v_cache, pos, window: int):
     win, kh = k_cache.shape[1], k_cache.shape[2]
     g = h // kh
     scale = hd ** -0.5
-    qg = q.reshape(b, kh, g, hd).float() * scale
+    qg = layers.placed(q, dp=0).reshape(b, kh, g, hd).float() * scale
     s = torch.einsum("bkgx,bckx->bkgc", qg, k_cache.float())
     slot = torch.arange(win, device=q.device)
     # slot holds absolute position: p_abs = pos - ((pos - slot) mod win)

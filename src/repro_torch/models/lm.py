@@ -5,7 +5,7 @@ import torch
 
 from repro_torch.core.backend import resolve_device
 
-from . import transformer
+from . import layers, transformer
 from .params import ParamTree, abstract_params, count_params, init_tree
 
 
@@ -16,14 +16,18 @@ def causal_lm_loss(logits, targets, cfg, mask=None, z_loss: float = 1e-4):
     pipeline (targets[t] is the token after inputs[t]).
     """
     v = cfg.vocab
-    logits = logits.float()
-    # mask padded vocab entries out of the softmax
-    vpad = logits.shape[-1]
-    if vpad > v:
-        logits = logits.clone()
-        logits[..., v:] = -1e30
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    if layers.split_dim(logits, -1):
+        lse, gold = _lse_gold_on_shards(logits, targets, v)
+    else:
+        logits = logits.float()
+        # mask padded vocab entries out of the softmax
+        vpad = logits.shape[-1]
+        if vpad > v:
+            logits = logits.clone()
+            logits[..., v:] = -1e30
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = layers.settled(
+            torch.gather(logits, -1, targets.long()[..., None]))[..., 0]
     nll = lse - gold
     zl = z_loss * torch.square(lse)
     per_tok = nll + zl
@@ -33,6 +37,46 @@ def causal_lm_loss(logits, targets, cfg, mask=None, z_loss: float = 1e-4):
     denom = torch.clamp(torch.sum(mask), min=1.0)
     total = torch.sum(per_tok * mask) / denom
     return total, {"nll": torch.sum(nll * mask) / denom}
+
+
+def _lse_gold_on_shards(logits, targets, v):
+    """(logsumexp, gold logit) of vocabulary-sharded DTensor ``logits``,
+    each rank on its own columns (vocabulary-parallel cross entropy):
+    gathering the logits would hold all of them on every rank.  A rank
+    masks its padded columns, takes its max (all-reduced), its sum of
+    exponentials and the gold logits its columns hold (each all-reduced
+    as a pending sum)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    logits = layers.placed(logits, model=-1, dp=0)
+    targets = layers.placed(targets, dp=0)
+    mesh = logits.device_mesh
+    ll, tl = layers.shards(logits, targets)
+    _, offset = compute_local_shape_and_global_offset(
+        logits.shape, mesh, logits.placements)
+    lo, n = offset[-1], ll.shape[-1]
+    col = torch.arange(lo, lo + n, device=ll.device)
+    ll = torch.where(col < v, ll.float(), -1e30)
+
+    def whole(x, op):
+        """A rank's part ``x`` (B, S) reduced with ``op`` over the ranks
+        that split the vocabulary."""
+        pl = [Shard(0) if isinstance(q, Shard) and q.dim == 0 else
+              Partial(op) if isinstance(q, Shard) else Replicate()
+              for q in logits.placements]
+        x = DTensor.from_local(x, mesh, pl, run_check=False)
+        return x.redistribute(mesh, [Shard(0) if isinstance(q, Shard)
+                                     else Replicate() for q in pl])
+
+    m = whole(torch.amax(ll.detach(), dim=-1), "max")
+    lse = torch.log(whole(torch.sum(torch.exp(
+        ll - layers.shards(m)[0][..., None]), dim=-1), "sum")) + m
+    t = tl.long()
+    hit = (t >= lo) & (t < lo + n)
+    gold = torch.gather(ll, -1, torch.where(hit, t - lo, 0)[..., None])
+    gold = whole(gold[..., 0] * hit, "sum")
+    return lse, gold
 
 
 class Model(ParamTree):

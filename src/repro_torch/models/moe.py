@@ -11,12 +11,21 @@ the routing equal to the reference's:
   * the sort by expert id is stable, which sets which choices are dropped;
   * the dropped choices' out-of-range slot ``n_experts * cap`` is a spare
     buffer row that is sliced off (``mode="drop"`` in the reference).
+
+On a mesh the dispatch stays global, as the reference's program is: one
+capacity for all tokens, so every rank routes all of them (the tokens
+gathered), and the routing, dispatch and combine run on each rank's
+whole copies (``layers.shards``; DTensor has no rules for their index
+writes).  The experts' products run on DTensors, with the experts on the
+model axis and the capacity rows on the data-parallel axes, and their
+outputs are gathered for the combine.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from . import layers
 from .params import Param
 
 
@@ -63,16 +72,27 @@ def _shared(sp, xt):
     return torch.einsum("tf,fd->td", F.silu(sg) * su, sp["wo"]).float()
 
 
+def expert_counts(flat_e, n_experts: int):
+    """Choices per expert, ``torch.bincount(flat_e, minlength=n_experts)``
+    with a shape that does not depend on the data (int64), so that the
+    block traces on meta and fake tensors."""
+    ones = torch.ones_like(flat_e)
+    return flat_e.new_zeros((n_experts,)).scatter_add_(0, flat_e, ones)
+
+
 def moe_block(p, x, cfg):
     """x (B, S, d) -> (y (B, S, d), aux_loss scalar)."""
     m = cfg.moe
     b, s, d = x.shape
     t = b * s
-    xt = x.reshape(t, d)
+    x_in = x.reshape(t, d)
+    # on a mesh every rank routes all tokens, on its whole copies
+    xt = layers.placed(x_in)
+    xl, router = layers.shards(xt, layers.placed(p["router"]))
     cap = _capacity(t, cfg)
     dev = x.device
 
-    logits, probs, top_w, top_e = route(p, xt, cfg)
+    logits, probs, top_w, top_e = route({"router": router}, xl, cfg)
 
     # ---- load-balance + router-z auxiliary losses (Switch Transformer)
     me = torch.mean(probs, dim=0)                            # (E,)
@@ -81,7 +101,7 @@ def moe_block(p, x, cfg):
     aux = m.n_experts * torch.sum(me * ce)
     zloss = m.router_z_loss * torch.mean(
         torch.square(torch.logsumexp(logits, dim=-1)))
-    aux_loss = aux + zloss
+    aux_loss = layers.sharded_like(aux + zloss, xt)
 
     # ---- sort-based capacity dispatch
     flat_e = top_e.reshape(-1)                               # (T*k,)
@@ -91,7 +111,7 @@ def moe_block(p, x, cfg):
     e_sorted = flat_e[order]
     tok_sorted = flat_tok[order]
     w_sorted = flat_w[order]
-    counts = torch.bincount(flat_e, minlength=m.n_experts)
+    counts = expert_counts(flat_e, m.n_experts)
     starts = torch.cumsum(counts, dim=0) - counts
     rank = torch.arange(t * m.top_k, device=dev) - starts[e_sorted]
     keep = rank < cap
@@ -100,24 +120,28 @@ def moe_block(p, x, cfg):
                        torch.full_like(rank, n_slots))
 
     # one spare row takes the dropped choices' writes
-    buf = torch.zeros((n_slots + 1, d), dtype=x.dtype, device=dev)
-    buf[slot] = xt[tok_sorted]
+    buf = xl.new_zeros((n_slots + 1, d))
+    buf[slot] = xl[tok_sorted]
     buf = buf[:n_slots].reshape(m.n_experts, cap, d)
 
-    # ---- expert FFN
+    # ---- expert FFN; on a mesh the experts over the model axis and the
+    # capacity rows over the data-parallel axes
+    buf = layers.placed(layers.sharded_like(buf, xt), model=0, dp=1)
     g = torch.einsum("ecd,edf->ecf", buf, p["wi_gate"])
     u = torch.einsum("ecd,edf->ecf", buf, p["wi_up"])
     eo = torch.einsum("ecf,efd->ecd", F.silu(g) * u, p["wo"])
+    eo, = layers.shards(layers.placed(eo))
     eo = eo.reshape(n_slots, d)
 
     # ---- combine (weighted scatter-add back to token order)
-    y = torch.zeros((t, d), dtype=torch.float32, device=dev)
+    y = xl.new_zeros((t, d), dtype=torch.float32)
     contrib = eo[torch.clamp(slot, max=n_slots - 1)].float()
     contrib = contrib * (w_sorted * keep)[:, None]
     y.index_add_(0, tok_sorted, contrib)
+    y = layers.sharded_like(y, xt)
 
     if m.shared_expert:
-        y = y + _shared(p["shared"], xt)
+        y = y + _shared(p["shared"], x_in)
 
     return y.reshape(b, s, d).to(x.dtype), aux_loss
 

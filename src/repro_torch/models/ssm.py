@@ -15,6 +15,12 @@ Training paths are *chunk-parallel*, as in the reference:
 
 Decode paths are O(1)-state recurrent steps.  ``mamba_ref`` and
 ``mlstm_ref_inner`` are the sequential oracles.
+
+On a mesh (DTensors) the scans run on each rank's shards, laid out by
+``layers.placed``: the batch over the data-parallel axes, the model axis
+on d_inner (mamba) or the heads (mLSTM, sLSTM) where it divides them,
+else replicated.  The recurrences are per channel or per head, so a
+rank's scan needs no other rank's.
 """
 from __future__ import annotations
 
@@ -130,7 +136,9 @@ def mamba_block(p, x, cfg, state: Optional[Tuple] = None,
     x1, new_conv = _causal_conv(x1, p["conv_w"], p["conv_b"], conv_state)
     x1 = F.silu(x1)
 
-    dbc = torch.einsum("bsi,ie->bse", x1, p["x_proj"])
+    # on a mesh the contraction over the model-sharded d_inner leaves
+    # pending sums, reduced here before dt_proj's product reads them
+    dbc = layers.settled(torch.einsum("bsi,ie->bse", x1, p["x_proj"]))
     dt_r = dbc[..., :dtr]
     bmat = dbc[..., dtr:dtr + ds].float()
     cmat = dbc[..., dtr + ds:].float()
@@ -139,11 +147,18 @@ def mamba_block(p, x, cfg, state: Optional[Tuple] = None,
     ).float()
     a_mat = -torch.exp(p["a_log"].float())                   # (di, ds)
 
-    h0 = state[0].float() if state is not None else \
-        torch.zeros((b, di, ds), dtype=F32, device=x.device)
-    y, h_end = _mamba_scan_fused(dt, x1.float(), bmat, cmat, a_mat, h0,
-                                 cfg.ssm.chunk)
-    y = y + p["d_skip"].float() * x1.float()
+    h0 = state[0].float() if state is not None else dt.new_zeros((b, di, ds))
+    x1f = x1.float()
+    # on a mesh each rank scans its own channels (the recurrence is per
+    # channel): d_inner over the model axis, the batch over the DP axes
+    dt, x1f = (layers.placed(t, model=2, dp=0) for t in (dt, x1f))
+    h0 = layers.placed(h0, model=1, dp=0)
+    bmat, cmat = (layers.placed(t, dp=0) for t in (bmat, cmat))
+    a_mat = layers.placed(a_mat, model=0)
+    y, h_end = _mamba_scan_fused(*layers.shards(dt, x1f, bmat, cmat, a_mat,
+                                                h0), cfg.ssm.chunk)
+    y, h_end = layers.sharded_like(y, dt), layers.sharded_like(h_end, h0)
+    y = y + p["d_skip"].float() * x1f
     y = y.to(x.dtype) * F.silu(z)
     out = torch.einsum("bsi,id->bsd", y, p["out_proj"])
     if return_state:
@@ -309,11 +324,21 @@ def mlstm_block(p, x, cfg, state=None, return_state: bool = False):
     k = torch.einsum("bsi,ihx->bshx", xi, p["wk"])
     v = torch.einsum("bsi,ihx->bshx", xi, p["wv"])
     log_i = torch.einsum("bsi,ih->bsh", xi, p["wi"]).float()
-    log_f = F.logsigmoid(torch.einsum("bsi,ih->bsh", xi, p["wf"]).float())
-    hs, carry = mlstm_inner(q, k, v, log_f, log_i,
-                            cfg.ssm.chunk if cfg.ssm else 64, carry=state)
+    f_pre = torch.einsum("bsi,ih->bsh", xi, p["wf"]).float()
+    # on a mesh each rank runs its own heads: the batch over the DP axes,
+    # the heads over the model axis where they divide into it
+    q, k, v, log_i, f_pre = (layers.placed(t, model=2, dp=0)
+                             for t in (q, k, v, log_i, f_pre))
+    state = [] if state is None else [layers.placed(t, model=1, dp=0)
+                                      for t in state]
+    ql, kl, vl, fl, il, *state = layers.shards(q, k, v, f_pre, log_i, *state)
+    hs, carry = mlstm_inner(ql, kl, vl, F.logsigmoid(fl), il,
+                            cfg.ssm.chunk if cfg.ssm else 64,
+                            carry=tuple(state) or None)
+    hs = layers.sharded_like(hs, q)
+    carry = tuple(layers.sharded_like(t, q, {0: 0, 2: 1}) for t in carry)
     hs = layers.rmsnorm(p["norm"], hs.to(x.dtype), cfg.norm_eps)
-    y = hs.reshape(x.shape[0], x.shape[1], di) * F.silu(z)
+    y = layers.merged(hs, (x.shape[0], x.shape[1], di)) * F.silu(z)
     out = torch.einsum("bsi,id->bsd", y, p["down"])
     if return_state:
         return out, carry
@@ -390,14 +415,22 @@ def slstm_block(p, x, cfg, state=None, return_state: bool = False):
     hd = d // h
     xp = torch.einsum("bsd,dhgy->bshgy", x, p["wx"])
     if state is None:
-        z = torch.zeros((b, h, hd), dtype=F32, device=x.device)
-        state = (z, z, z, torch.full((b, h, hd), -1e30, dtype=F32,
-                                     device=x.device))
+        z = xp.new_zeros((b, h, hd), dtype=F32)
+        state = (z, z, z, xp.new_full((b, h, hd), -1e30, dtype=F32))
+    # on a mesh each rank runs its own heads: the batch over the DP axes,
+    # the heads over the model axis where they divide into it
+    xp = layers.placed(xp, model=2, dp=0)
+    xl, r, bias, *st = layers.shards(
+        xp, *(layers.placed(p[k], model=0) for k in ("r", "b")),
+        *(layers.placed(t, model=1, dp=0) for t in state))
+    rp, st = {"r": r, "b": bias}, tuple(st)
     hs = []
     for t in range(s):
-        state = _slstm_step(p, xp[:, t], state, 1e-6)
-        hs.append(state[2])
-    hs = torch.stack(hs, dim=1).reshape(b, s, d).to(x.dtype)
+        st = _slstm_step(rp, xl[:, t], st, 1e-6)
+        hs.append(st[2])
+    state = tuple(layers.sharded_like(t, xp, {0: 0, 2: 1}) for t in st)
+    hs = layers.sharded_like(torch.stack(hs, dim=1), xp)
+    hs = layers.merged(hs, (b, s, d)).to(x.dtype)
     hs = layers.rmsnorm(p["norm"], hs, cfg.norm_eps)
     out = torch.einsum("bsd,de->bse", hs, p["down"])
     if return_state:

@@ -26,6 +26,7 @@ from __future__ import annotations
 from typing import List
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils import checkpoint as ckpt_lib
 
 from . import attention as attn_lib
@@ -168,6 +169,21 @@ def init_cache(cfg, batch: int, cache_len: int, device="cpu") -> List[dict]:
 
 # -------------------------------------------------------------- sub-blocks
 
+def _index_write(c, idx, new):
+    """``c[:, idx] = new`` into ``c`` (the caller's copy), returned.  On a
+    mesh the sequence dim of ``c`` is sharded (``rules.cache_shardings``)
+    and DTensor has no rule for an index write into it: the write runs on
+    each rank's copy of the whole sequence, laid out as ``c`` after."""
+    if not isinstance(c, DTensor):
+        c[:, idx] = new
+        return c
+    whole, new = layers.placed(c, dp=0), layers.placed(new, dp=0)
+    cl, nl = layers.shards(whole, new)
+    cl[:, idx] = nl
+    return layers.sharded_like(cl, whole).redistribute(c.device_mesh,
+                                                       c.placements)
+
+
 def apply_sub(kind: str, p, x, cfg, *, positions, mode: str, cache=None,
               pos=None, memory=None):
     """One residual sub-block on pre-normed input.  Returns
@@ -212,8 +228,8 @@ def apply_sub(kind: str, p, x, cfg, *, positions, mode: str, cache=None,
                     # keep the trailing window in ring order
                     m = min(s, clen)
                     idx = torch.arange(s - m, s, device=x.device) % clen
-                    kc[:, idx] = k[:, -m:]
-                    vc[:, idx] = v[:, -m:]
+                    kc = _index_write(kc, idx, k[:, -m:])
+                    vc = _index_write(vc, idx, v[:, -m:])
                 else:
                     if s > clen:
                         raise ValueError(f"prefill of {s} tokens does not "
@@ -290,10 +306,15 @@ def apply_sub(kind: str, p, x, cfg, *, positions, mode: str, cache=None,
 # ------------------------------------------------------------------ units
 
 def _constrain_dp(x, cfg):
-    """The reference pins the residual stream's batch dim to the DP mesh
-    axes here; outside a mesh it returns its input.  The port runs the
-    model on one device per process, so it returns its input."""
-    return x
+    """The residual stream's layout before each sub-block and the head.
+    The reference pins its batch dim to the DP mesh axes here (under
+    ``constrain_acts``; XLA's propagation places it otherwise).  On a mesh
+    the port pins it always: the batch over the DP axes
+    (``rules.batch_sharding``), the model axis replicated
+    (``layers.placed``): unpinned, the stream drifts into layouts (the
+    sequence or d_model split over the model axis) that later views
+    cannot split.  Outside a mesh it returns its input."""
+    return layers.placed(x, dp=0)
 
 
 def apply_unit(up, x, cfg, *, positions, mode, cache=None, pos=None,
@@ -434,7 +455,8 @@ def forward(params, cfg, tokens, *, mode: str = "train", cache=None,
     x, new_cache, aux = apply_stack(
         params["layers"], x, cfg, positions=positions, mode=mode,
         cache=cache, pos=pos, memory=memory, remat=remat)
-    x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    x = layers.rmsnorm(params["final_norm"], _constrain_dp(x, cfg),
+                       cfg.norm_eps)
     if cfg.tie_embeddings:
         logits = layers.unembed(params["embed"], x)
     else:

@@ -23,6 +23,7 @@ as the reference returns its new trees.
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch.models.params import leaves, map_spec, stacked_leaves
 
@@ -74,6 +75,18 @@ def _apply(ts, new):
     """Write the float32 values ``new`` into the parameters ``ts``."""
     for t, n in zip(ts, new):
         t.copy_(n)
+
+
+def _unstack(x, ts):
+    """A stacked ``(n_reps, ...)`` leaf ``x`` as one tensor per repetition.
+    On a mesh ``x`` is first laid out as the repetitions ``ts`` are
+    stacked: DTensor may have split the repetition dim itself, which it
+    cannot unbind."""
+    if isinstance(x, DTensor):
+        pl = [Shard(p.dim + 1) if isinstance(p, Shard) else p
+              for p in ts[0].placements]
+        x = x.redistribute(x.device_mesh, pl)
+    return x.unbind(0)
 
 
 # ------------------------------------------------------------------- AdamW
@@ -176,7 +189,7 @@ def adafactor_update(grads, state, params, *, lr, b1=0.9, decay=0.8,
                 old.copy_(new)
             m.copy_(mm.to(torch.bfloat16))
             new_p = p - lr * step
-            _apply(ts, new_p.unbind(0) if stacked else [new_p])
+            _apply(ts, _unstack(new_p, ts) if stacked else [new_p])
     state["count"] = c
     return params, state
 
