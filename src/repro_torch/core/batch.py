@@ -202,13 +202,13 @@ def decide_lanes_async(lanes: Sequence[Lane], *, cap: Optional[int] = None,
 
     adj, allowed, ks, targets = _pack_lanes(lanes, n_max, w)
     fr = frontier_lib.lane_frontiers(len(lanes), cap, w, device)
+    tr = telemetry.get(tracker)
     out_fr, _levels, expanded, dropped = engine_lib.decide_loop(
         bitset.to_words(adj, device), bitset.to_words(allowed, device),
         torch.from_numpy(ks).to(device), targets.tolist(), fr, n=n_max,
         cap=cap, block=block, mode=mode, use_mmw=use_mmw, m_bits=m_bits,
         k_hashes=k_hashes, schedule=schedule, backend=backend,
-        use_simplicial=use_simplicial)
-    tr = telemetry.get(tracker)
+        use_simplicial=use_simplicial, tracker=tr)
     tr.count(dispatches=1)
     event = None
     if device.type == "cuda":
@@ -310,7 +310,12 @@ class InstanceState:
     ``expanded`` (the sequential path also expands that rung once), and
     the block orders are stitched as ``solve(reconstruct=True)`` does.
     ``recon_kw`` carries the decide arguments of that replay (``cap=None``
-    re-plans per block with ``plan_capacity``)."""
+    re-plans per block with ``plan_capacity``).
+
+    ``tracker`` is the request's telemetry scope: its rung accounting and
+    its planning spans (``preprocess_s``, ``plan_s``) land there.  With
+    ``None`` the rung accounting is dropped and planning is timed on the
+    process root."""
 
     def __init__(self, g: Graph, solver_lib, *, use_preprocess: bool,
                  plan_kw: dict, reconstruct: bool = False,
@@ -320,6 +325,7 @@ class InstanceState:
         self.plan_kw = plan_kw
         # per-request telemetry scope; NULL unless the caller opts in
         self.tracker = telemetry.NULL if tracker is None else tracker
+        self.plan_tracker = telemetry.get(tracker)
         self.reconstruct = reconstruct
         self.recon_kw = dict(recon_kw or {})
         self.t0 = time.time()
@@ -336,7 +342,8 @@ class InstanceState:
                                                  [], {})
             return
         if use_preprocess:
-            self.pre = preprocess_lib.preprocess(g)
+            self.pre = preprocess_lib.preprocess(
+                g, tracker=self.plan_tracker)
             self.parts = [b.g for b in self.pre.blocks]
             self.fold = solver_lib.SuiteFold.start(self.pre.lb)
         else:
@@ -428,7 +435,8 @@ class InstanceState:
             self.bi += 1
             if self.use_pre and self.fold.skip(part):
                 continue
-            plan = self.solver.plan_block(part, **self.plan_kw)
+            plan = self.solver.plan_block(part, tracker=self.plan_tracker,
+                                          **self.plan_kw)
             if plan.result is not None:
                 self._fold(plan.result, part.name, idx)
                 continue

@@ -43,11 +43,19 @@ and the cross-chunk sort-dedup is skipped.
 ``fused_decide_launch`` / ``DispatchHandle.result()`` keep the reference's
 launch/result split; ``result()`` is the one copy of the verdict to the
 host.
+
+On one device, every blocking copy to the host of the fused, lane,
+host-loop and sharded engines (``decide_loop``, ``DispatchHandle.result``,
+``solver.run_level``, ``shard.sharded_decide_loop``) goes through
+``read_host``: a ``read_s`` span on the caller's tracker (the host's wait
+plus the copy), and its bytes counted as ``d2h_bytes`` on the process
+root, process-wide like the kernels' ``LAUNCHES``.  The mesh path
+(``core/distributed.py``) reads after its collectives and is not counted.
+``decide_loop`` times the enqueueing of each level as a ``level_s`` span.
 """
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Any, Callable, Optional
 
 import torch
@@ -85,20 +93,31 @@ def count(dispatches: int = 0, host_syncs: int = 0, **extra: int):
     telemetry.root().count(**kw)
 
 
+def read_host(tensors, tracker) -> tuple:
+    """Copy ``tensors`` to the host in one blocking read: a ``read_s``
+    span on ``tracker``, the bytes copied counted as ``d2h_bytes`` on the
+    process root.  Items that are not tensors pass through."""
+    with tracker.time_block("read_s"):
+        host = tuple(t.cpu() if isinstance(t, torch.Tensor) else t
+                     for t in tensors)
+    telemetry.root().count(d2h_bytes=sum(
+        t.nbytes for t in tensors if isinstance(t, torch.Tensor)))
+    return host
+
+
 @dataclasses.dataclass
 class DispatchHandle:
     """A launched decide whose copy to the host is deferred.
 
-    ``result()`` copies the held tensors to the host once (counted as one
-    ``host_syncs`` on the tracker), converts them through ``finalize`` and
-    caches the value.  ``ready()`` polls without blocking."""
+    ``result()`` copies the held tensors to the host once (``read_host``;
+    counted as one ``host_syncs`` on the tracker), converts them through
+    ``finalize`` and caches the value.  ``ready()`` polls without blocking."""
     arrays: Any                      # tuple of in-flight tensors / ints
     finalize: Callable[[Any], Any]   # host values -> caller-shaped result
     tracker: Any = None              # telemetry scope (None = process root)
     event: Optional[torch.cuda.Event] = None
     _result: Any = None
     _done: bool = False
-    _t0: float = dataclasses.field(default_factory=time.perf_counter)
 
     def ready(self) -> bool:
         """Has the device finished?  Never blocks."""
@@ -107,11 +126,9 @@ class DispatchHandle:
     def result(self):
         """Block for the verdict: one copy to the host, then cached."""
         if not self._done:
-            host = tuple(a.cpu() if isinstance(a, torch.Tensor) else a
-                         for a in self.arrays)
             tr = telemetry.get(self.tracker)
+            host = read_host(self.arrays, tr)
             tr.count(host_syncs=1)
-            tr.timing("dispatch_wall_s", time.perf_counter() - self._t0)
             self._result = self.finalize(host)
             self.arrays = None
             self._done = True
@@ -283,20 +300,23 @@ def shard_sweep(adj, allowed, k, states, count, counts, *, n, cap, block,
 
 def decide_loop(adj, allowed, k, targets, fr, *, n, cap, block, mode,
                 use_mmw, m_bits, k_hashes, schedule, backend,
-                use_simplicial):
+                use_simplicial, tracker=None):
     """Run every lane of a lane-batched frontier up to its target level;
     a lane stops early on emptiness, as it would alone.
 
     adj (L, n, W), allowed (L, W), k an (L,) int32 tensor on the device,
     ``targets`` a host list of each lane's level count, ``fr`` a
     ``frontier.lane_frontiers`` carry.  Each level reads the (L,) counts
-    once.  Returns (frontier, levels_run, expanded, dropped_total), the
-    middle two host lists and the last an (L,) int32 tensor."""
+    once (``read_host``), and the loop ends on one more read; enqueueing a
+    level is a ``level_s`` span on ``tracker``.  Returns (frontier,
+    levels_run, expanded, dropped_total), the middle two host lists and
+    the last an (L,) int32 tensor."""
     nl = len(targets)
     levels, expanded = [0] * nl, [0] * nl
+    tr = telemetry.get(tracker)
     dropped = torch.zeros((nl,), dtype=torch.int32, device=adj.device)
     while True:
-        counts = fr.count.tolist()
+        counts = read_host((fr.count,), tr)[0].tolist()
         live = [levels[i] < targets[i] and counts[i] > 0
                 for i in range(nl)]
         if not any(live):
@@ -305,12 +325,13 @@ def decide_loop(adj, allowed, k, targets, fr, *, n, cap, block, mode,
             if live[i]:
                 expanded[i] += counts[i]
                 levels[i] += 1
-        fr, drop = _level_step(
-            adj, allowed, k, fr, counts, live, n=n, cap=cap, block=block,
-            mode=mode, use_mmw=use_mmw, m_bits=m_bits, k_hashes=k_hashes,
-            schedule=schedule, backend=backend,
-            use_simplicial=use_simplicial)
-        dropped = dropped + drop.to(torch.int32)
+        with tr.time_block("level_s"):
+            fr, drop = _level_step(
+                adj, allowed, k, fr, counts, live, n=n, cap=cap,
+                block=block, mode=mode, use_mmw=use_mmw, m_bits=m_bits,
+                k_hashes=k_hashes, schedule=schedule, backend=backend,
+                use_simplicial=use_simplicial)
+            dropped = dropped + drop.to(torch.int32)
 
 
 def fused_decide_launch(adj_dev, allowed_dev, k: int, target, *, n, cap,
@@ -333,6 +354,7 @@ def fused_decide_launch(adj_dev, allowed_dev, k: int, target, *, n, cap,
     if fr is None:
         fr = frontier_lib.empty_frontier(cap, w, device)
     levels = target if max_levels is None else min(target, max_levels)
+    tr = telemetry.get(tracker)
 
     one = frontier_lib.Frontier(fr.states[None], fr.count.reshape(1),
                                 fr.dropped.reshape(1))
@@ -341,10 +363,9 @@ def fused_decide_launch(adj_dev, allowed_dev, k: int, target, *, n, cap,
         torch.tensor([int(k)], dtype=torch.int32, device=device), [levels],
         one, n=n, cap=cap, block=block, mode=mode, use_mmw=use_mmw,
         m_bits=m_bits, k_hashes=k_hashes, schedule=schedule,
-        backend=backend, use_simplicial=use_simplicial)
+        backend=backend, use_simplicial=use_simplicial, tracker=tr)
     fr = frontier_lib.Frontier(one.states[0], one.count[0], one.dropped[0])
     expanded, dropped = expanded[0], dropped[0]
-    tr = telemetry.get(tracker)
     tr.count(dispatches=1)
     event = None
     if device.type == "cuda":

@@ -17,6 +17,7 @@ from __future__ import annotations
 import dataclasses
 import numpy as np
 
+from . import telemetry
 from .graph import Graph
 
 
@@ -173,8 +174,17 @@ class Preprocessed:
     removed: list         # top-level reduction removals (original ids, order)
 
 
-def preprocess(g: Graph, split_blocks: bool = True) -> Preprocessed:
-    """Full pipeline: simplicial reduce -> biconnected blocks -> reduce each."""
+def preprocess(g: Graph, split_blocks: bool = True,
+               tracker=None) -> Preprocessed:
+    """Full pipeline: simplicial reduce -> biconnected blocks -> reduce each.
+
+    Timed as a ``preprocess_s`` span on ``tracker`` (``None``: the process
+    root)."""
+    with telemetry.get(tracker).time_block("preprocess_s"):
+        return _preprocess(g, split_blocks)
+
+
+def _preprocess(g: Graph, split_blocks: bool) -> Preprocessed:
     red, lb, keep, removed0 = simplicial_reduce(g)
     parts: list = []
     if red.n:

@@ -138,10 +138,14 @@ def _repack(states: torch.Tensor, counts: torch.Tensor,
 
 def sharded_decide_loop(adj, allowed, k: int, target: int, fr, *, shards,
                         n, cap, block, mode, use_mmw, m_bits, k_hashes,
-                        schedule, backend, use_simplicial, donate_ratio):
+                        schedule, backend, use_simplicial, donate_ratio,
+                        tracker=None):
     """Run up to ``target`` levels with the frontier split across shards;
     stop early on emptiness.  ``adj`` (n, W) and ``allowed`` (W,) are the
-    rung's, ``fr`` a ``frontier.shard_frontiers`` carry.
+    rung's, ``fr`` a ``frontier.shard_frontiers`` carry.  The (S,) counts
+    are read once before the first level and once a level
+    (``engine.read_host``); enqueueing a level up to its read is a
+    ``level_s`` span on ``tracker``.
 
     Returns (counts, levels, expanded, dropped, stats): the final (S,)
     counts as a host list, host ints, the total drops as a device
@@ -161,8 +165,9 @@ def sharded_decide_loop(adj, allowed, k: int, target: int, fr, *, shards,
         filts = backend_lib.get_op("bloom_make_filter", backend)(
             m_bits, device=device, lanes=s)
         query_insert = backend_lib.get_op("bloom_query_insert", backend)
+    tr = telemetry.get(tracker)
     states, count = fr.states, fr.count
-    counts = count.tolist()
+    counts = engine_lib.read_host((count,), tr)[0].tolist()
     level = expanded = 0
     dropped = torch.zeros((), dtype=torch.int64, device=device)
     stats = [0, 0, 0, 0]
@@ -170,22 +175,26 @@ def sharded_decide_loop(adj, allowed, k: int, target: int, fr, *, shards,
         expanded += sum(counts)
         stats[2] += counts.count(0)
         stats[3] = max(stats[3], max(counts))
-        out, ocnt, drop_local = engine_lib.shard_sweep(
-            adj_s, allowed_s, k_s, states, count, counts, n=n, cap=cap,
-            block=block, use_mmw=use_mmw, schedule=schedule,
-            backend=backend, use_simplicial=use_simplicial)
-        valid = (rows[None] < ocnt[:, None]).reshape(-1)
-        recv, rcounts, drop_route = route_states(out.reshape(s * cap, w),
-                                                 valid, s, cap)
-        buf, cnts, drop_own = dedup.dedup_compact(
-            recv, rows[None] < rcounts[:, None], cap)
-        if mode == "bloom":
-            buf = buf.contiguous()
-            keep, filts = query_insert(filts, buf, rows[None] < cnts[:, None],
-                                       m_bits=m_bits, k_hashes=k_hashes)
-            buf, cnts, _ = dedup.compact(buf, keep, cap)
-        dropped = dropped + drop_local.sum() + drop_route + drop_own.sum()
-        counts = cnts.tolist()                # the level's one host read
+        with tr.time_block("level_s"):
+            out, ocnt, drop_local = engine_lib.shard_sweep(
+                adj_s, allowed_s, k_s, states, count, counts, n=n, cap=cap,
+                block=block, use_mmw=use_mmw, schedule=schedule,
+                backend=backend, use_simplicial=use_simplicial)
+            valid = (rows[None] < ocnt[:, None]).reshape(-1)
+            recv, rcounts, drop_route = route_states(
+                out.reshape(s * cap, w), valid, s, cap)
+            buf, cnts, drop_own = dedup.dedup_compact(
+                recv, rows[None] < rcounts[:, None], cap)
+            if mode == "bloom":
+                buf = buf.contiguous()
+                keep, filts = query_insert(
+                    filts, buf, rows[None] < cnts[:, None], m_bits=m_bits,
+                    k_hashes=k_hashes)
+                buf, cnts, _ = dedup.compact(buf, keep, cap)
+            dropped = dropped + drop_local.sum() + drop_route \
+                + drop_own.sum()
+        # the level's one host read
+        counts = engine_lib.read_host((cnts,), tr)[0].tolist()
         targets, trig, moved = donation_plan(counts, donate_ratio)
         if trig:
             tdev = torch.from_numpy(targets).to(device)
@@ -297,7 +306,7 @@ def decide_sharded_async(g: Graph, k: int, clique=(), *, shards: int,
         target, fr, shards=shards, n=n_static, cap=cap, block=block,
         mode=mode, use_mmw=use_mmw, m_bits=m_bits, k_hashes=k_hashes,
         schedule=schedule, backend=backend, use_simplicial=use_simplicial,
-        donate_ratio=ratio)
+        donate_ratio=ratio, tracker=tracker)
     tr = telemetry.get(tracker)
     tr.count(dispatches=1)
     event = None

@@ -62,10 +62,11 @@ def run_level(adj_dev, fr: frontier_lib.Frontier, k: int, allowed_dev,
 
     Host-loop engine: an adaptive block ``max(32, min(block,
     pow2(count)))`` per level, and in sort mode a cross-chunk dedup
-    whenever the level took more than one chunk."""
+    whenever the level took more than one chunk.  Its two blocking reads
+    (the count in, the counts out) go through ``engine.read_host``."""
     tr = telemetry.get(tracker)
     w = fr.w
-    count = int(fr.count)
+    count = int(engine_lib.read_host((fr.count,), tr)[0])
     tr.count(host_syncs=1)
     block = max(32, min(block, batch_lib._pow2_at_least(max(count, 1))))
     if cap % block:
@@ -101,7 +102,8 @@ def run_level(adj_dev, fr: frontier_lib.Frontier, k: int, allowed_dev,
 
     new_fr = frontier_lib.Frontier(out, ocount.to(torch.int32),
                                    dropped.to(torch.int32))
-    stats = LevelStats(expanded=count, generated=int(ocount),
+    generated, dropped = engine_lib.read_host((ocount, dropped), tr)
+    stats = LevelStats(expanded=count, generated=int(generated),
                        dropped=int(dropped))
     tr.count(host_syncs=2)
     tr.gauge_max("frontier_peak_rows", stats.generated)
@@ -285,7 +287,7 @@ class BlockPlan:
 
 def plan_block(g: Graph, *, use_clique: bool, use_paths: bool,
                start_k: Optional[int], heuristics: int = 0,
-               seed: int = 0) -> BlockPlan:
+               seed: int = 0, tracker=None) -> BlockPlan:
     """Bounds + deepening schedule for one block.
 
     ``start_k`` moves the ladder's starting rung but never the reported
@@ -294,7 +296,16 @@ def plan_block(g: Graph, *, use_clique: bool, use_paths: bool,
     (``core.bounds_engine``) first: a tighter lb raises ``k0`` (not
     ``forced``: the skipped rungs are refuted by a minor), a tighter ub
     shortens the ladder with its order.  ``seed`` pins every heuristic,
-    so the plan is a pure function of ``(g, knobs)``."""
+    so the plan is a pure function of ``(g, knobs)``.  Timed as a
+    ``plan_s`` span on ``tracker`` (``None``: the process root)."""
+    with telemetry.get(tracker).time_block("plan_s"):
+        return _plan_block(g, use_clique=use_clique, use_paths=use_paths,
+                           start_k=start_k, heuristics=heuristics,
+                           seed=seed)
+
+
+def _plan_block(g: Graph, *, use_clique, use_paths, start_k, heuristics,
+                seed) -> BlockPlan:
     if g.n <= 1:
         return BlockPlan(g, [], 0, 0, list(range(g.n)), None, 0, False,
                          SolveResult(0, True, 0, 0, 0, 0.0,
@@ -318,7 +329,7 @@ def plan_block(g: Graph, *, use_clique: bool, use_paths: bool,
             warnings.warn(
                 f"start_k={start_k} >= upper bound {ub} for {g.name}: no "
                 "search performed, returning the heuristic ub as an "
-                "inexact result", stacklevel=3)
+                "inexact result", stacklevel=4)
             return BlockPlan(g, clique, lb, ub, ub_order, None, k0, forced,
                              SolveResult(ub, False, lb, ub, 0, 0.0,
                                          ub_order, {}))
@@ -358,7 +369,8 @@ def solve_block(g: Graph, *, cap: Optional[int], block: int, mode: str,
     t0 = time.time()
     tr = telemetry.get(tracker)
     plan = plan_block(g, use_clique=use_clique, use_paths=use_paths,
-                      start_k=start_k, heuristics=heuristics, seed=seed)
+                      start_k=start_k, heuristics=heuristics, seed=seed,
+                      tracker=tr)
     if plan.result is not None:
         return dataclasses.replace(plan.result, time_sec=time.time() - t0)
     if cap is None:
@@ -522,7 +534,7 @@ def solve(g: Graph, *, cap: Optional[int] = None, block: int = 1 << 11,
     if not use_preprocess:
         return solve_block(g, reconstruct=reconstruct, **solve_kw)
 
-    pre = preprocess_lib.preprocess(g)
+    pre = preprocess_lib.preprocess(g, tracker=tracker)
     fold = SuiteFold.start(pre.lb)
     block_orders: list = [None] * len(pre.blocks)
     for i, part in enumerate(pre.blocks):

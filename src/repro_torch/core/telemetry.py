@@ -21,10 +21,16 @@ while the main thread read.  This module replaces that with a tree of
   * ``gauge_max(name, value)`` — high-watermark gauges; the ratchet
     *does* write through (the pool's peak is the max over its requests).
     ``shard_peak_occupancy`` keeps its legacy max-not-sum semantics here.
-  * ``time_block(name)`` — a context manager accumulating wall-clock
-    into ``timings[name] = {calls, total_s, max_s}``; ``timing(name, s)``
-    is the direct form for spans measured by hand (e.g. launch→result of
-    a ``DispatchHandle``).  Timings roll up like counters.
+  * ``time_block(name)`` — a span: a context manager accumulating
+    wall-clock into ``timings[name] = {calls, total_s, max_s}``; its
+    sink record also carries ``start_ns``/``end_ns`` on the profiler's
+    clock (epoch nanoseconds, ``time.time_ns``) and ``parent``, the name
+    of the span open around it on the same thread.  While
+    ``torch.profiler`` records, the span is also a profiler range of its
+    name on the host timeline (``_RecordFunctionFast``: not a user
+    annotation, so kineto mirrors no device row for it).
+    ``timing(name, s)`` is the direct form for spans measured by hand.
+    Timings roll up like counters.
   * ``child(scope)`` — a sub-scope sharing the tree's single lock.
     ``child`` is idempotent per name; ``drop_child`` detaches a finished
     scope (its contributions remain in the ancestors' totals).
@@ -119,12 +125,36 @@ class StdoutSink:
 
 # ------------------------------------------------------------- time block
 
+# the names of the spans open on each thread, innermost last
+_OPEN = threading.local()
+
+
+def _open_spans() -> List[str]:
+    stack = getattr(_OPEN, "names", None)
+    if stack is None:
+        stack = _OPEN.names = []
+    return stack
+
+
+def _profiler_range(name: str) -> Any:
+    """An entered profiler range named ``name`` while ``torch.profiler``
+    records, else ``None`` (torch is not imported for this)."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch.autograd._profiler_enabled():
+        return None
+    rng = torch._C._profiler._RecordFunctionFast(name)
+    rng.__enter__()
+    return rng
+
+
 class _TimeBlock:
     """Context manager created by ``Tracker.time_block``: measures
     ``perf_counter`` wall-clock and records it on exit (also on
-    exception — a failed span still took time)."""
+    exception — a failed span still took time), with its start and end
+    in epoch nanoseconds and its parent span."""
 
-    __slots__ = ("_tracker", "_name", "_t0")
+    __slots__ = ("_tracker", "_name", "_t0", "_start_ns", "_parent",
+                 "_range")
 
     def __init__(self, tracker: "Tracker", name: str) -> None:
         self._tracker = tracker
@@ -132,11 +162,22 @@ class _TimeBlock:
         self._t0 = 0.0
 
     def __enter__(self) -> "_TimeBlock":
+        stack = _open_spans()
+        self._parent = stack[-1] if stack else None
+        stack.append(self._name)
+        self._range = _profiler_range(self._name)
+        self._start_ns = time.time_ns()
         self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc: Any) -> None:
-        self._tracker.timing(self._name, time.perf_counter() - self._t0)
+        seconds = time.perf_counter() - self._t0
+        end_ns = time.time_ns()
+        if self._range is not None:
+            self._range.__exit__(*exc)
+        _open_spans().pop()
+        self._tracker._timing(self._name, seconds,
+                              (self._start_ns, end_ns, self._parent))
 
 
 class _NullCtx:
@@ -237,6 +278,12 @@ class Tracker:
 
     def timing(self, name: str, seconds: float) -> None:
         """Accumulate a measured span into this scope and every ancestor."""
+        self._timing(name, seconds, None)
+
+    def _timing(self, name: str, seconds: float,
+                span: Optional[tuple]) -> None:
+        """``timing``; ``span`` is ``(start_ns, end_ns, parent)`` of a
+        ``time_block``, put in the sink record only when a sink listens."""
         with self._lock:
             node: Optional[Tracker] = self
             while node is not None:
@@ -250,10 +297,14 @@ class Tracker:
                 node = node._parent
             sinks = self._collect_sinks()
             if sinks:
-                self._emit(sinks, {"kind": "time", "name": name,
-                                   "seconds": seconds})
+                rec = {"kind": "time", "name": name, "seconds": seconds}
+                if span is not None:
+                    rec.update(start_ns=span[0], end_ns=span[1],
+                               parent=span[2])
+                self._emit(sinks, rec)
 
     def time_block(self, name: str) -> _TimeBlock:
+        """A span named ``name`` on this scope (module docstring)."""
         return _TimeBlock(self, name)
 
     # -- reads

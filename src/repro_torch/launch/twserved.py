@@ -51,9 +51,11 @@ returns the hit/miss/eviction counters.
 ``metrics`` returns the scheduler's scoped telemetry snapshot
 (``TwScheduler.metrics``): pool-level counters/gauges/timings plus the
 per-request child scopes — live requests snapshotted in place, finished
-ones as frozen at their terminal event.  ``--metrics-jsonl PATH``
-additionally streams every telemetry record (one JSON line each) to a
-file for offline analysis.
+ones as frozen at their terminal event.  A request's timings hold its
+queue wait (``admission_s``) apart from its planning (the
+``preprocess_s`` and ``plan_s`` spans), both rolled up into the pool.
+``--metrics-jsonl PATH`` additionally streams every telemetry record (one
+JSON line each) to a file for offline analysis.
 
 Traffic shaping (DESIGN.md §12): ``--max-queue`` bounds the admission
 queue — an over-limit submit is *rejected*, not queued::

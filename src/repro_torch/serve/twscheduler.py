@@ -657,6 +657,9 @@ class TwScheduler:
             self._emit(req, {"event": "admitted", "name": req.g.name,
                              "round": self.rounds + 1})
             req.round_admitted = self.rounds
+            # the queue wait alone: the planning below is timed by its
+            # own spans (``preprocess_s``, ``plan_s``) in the request's
+            # scope, through ``InstanceState``'s tracker
             if req.tracker is not None and req.t_submit:
                 req.tracker.timing("admission_s",
                                    time.monotonic() - req.t_submit)

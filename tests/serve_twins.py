@@ -13,8 +13,10 @@ process-wide pool number in telemetry scope names is masked, see
 
   * ``SolveResult.time_sec``;
   * the ``timings`` of every telemetry snapshot (``admission_s``,
-    ``request_s``, ``round_s``, ``dispatch_wall_s``, ``heur_admit_s``),
-    which ride in the terminal events' ``metrics``.
+    ``request_s``, ``round_s``, ``heur_admit_s``; the reference's
+    ``dispatch_wall_s``; the port's spans ``preprocess_s``, ``plan_s``,
+    ``level_s`` and ``read_s``), which ride in the terminal events'
+    ``metrics``.
 
 A scenario is a function of one package namespace (``REF`` or ``PORT``):
 ``pkg.graph``, ``pkg.solver``, ``pkg.TwScheduler`` and ``pkg.kw``, the
