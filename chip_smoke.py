@@ -17,7 +17,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
      and 8, ragged valid rows and a lane with none), and both lane forms
      as the sharded engine drives them (SHARDS lanes sharing one
      adjacency, allowed mask and k; SHARDS 2^24-bit filters taking 2^17
-     rows each, carried across two levels);
+     rows each, carried across two levels); the paths kernel against the
+     host function ``bounds.disjoint_paths_matrix`` on Table-1 instances
+     and against its plain version on G(n, p) up to n = 256;
   3. main paths: ``repro_torch.core.solver.solve(g)`` on petersen,
      myciel4, queen5_5, queen6_6 and queen7_7 with its defaults (cuda
      device and backend, cap auto, block 2048), with the paper's
@@ -36,7 +38,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
      chunk's 2048*n sorted children for the Bloom kernel, into empty
      filters and into filters that already hold the level's second
      chunk, with the Bloom kernel's scratch bytes; the lane forms on 8
-     lanes of queen7_7 at k=23..30 and their children in 8 filters): the
+     lanes of queen7_7 at k=23..30 and their children in 8 filters; the
+     paths kernel on queen6_6 at cap 26 and queen7_7 at cap 37, with the
+     host wall of planning's form of it): the
      kernel's device time per call by replaying a CUDA graph of captured
      wrapper calls, and the time per wrapper call with CUDA events,
      beside the least time the card could take;
@@ -538,6 +542,15 @@ EDGE_B = (1, 128, 2048)
 WAVEFRONT_FLAGS = [(False, False), (True, False), (False, True),
                    (True, True)]
 MMW_N = (3, 17, 31, 33, 48, 64, 100)
+# the paths kernel's checks: Table-1 instances against the host function at
+# cap 0 and the plan's cap, and seeded G(n, p) at the word edges against
+# its plain version on the card ((n, p, cap))
+PATHS_NAMES = ("petersen", "myciel4", "queen5_5", "queen6_6", "dyck",
+               "grid6x6", "queen7_7")
+PATHS_GNP = ((33, 0.3, 5), (64, 0.1, 64), (65, 0.5, 3), (100, 0.05, 300),
+             (129, 0.7, 2), (200, 0.03, 8), (256, 0.9, 1), (256, 0.02, 64))
+# (instance, cap) of the paths kernel's times: the plan's cap of each
+PATHS_TIMING = [("queen6_6", 26), ("queen7_7", 37)]
 BLOOM_CASES = [(64, 3), (64, 17), (1 << 14, 3), (1 << 14, 17),
                (1 << 24, 17)]
 # probe counts: one, and groups past one warp
@@ -628,6 +641,8 @@ KERNELS = {
               "src/repro/kernels/bloom/kernel.py:62"),
     "expand": ("src/repro_torch/kernels/expand/csrc/expand.cu",
                "src/repro/kernels/expand/kernel.py:62"),
+    "paths": ("src/repro_torch/kernels/paths/csrc/paths.cu",
+              "none: the host function src/repro/core/bounds.py:146"),
 }
 
 
@@ -820,6 +835,32 @@ def check_mmw(torch, np, bitset, graph, components, kern):
                           f"k={k} (max abs err {err})")
     log(f"kernels: mmw bit-identical to mmw_bounds_ref over n={list(MMW_N)}"
         f" x k in (0, 2, 5, n) x B in (37, 2048)")
+    return worst
+
+
+def check_paths(torch, np, bitset, graph, kern):
+    from repro_torch.core import bounds
+    worst = 0
+    for name in PATHS_NAMES:
+        g = graph.REGISTRY[name]()
+        for cap in (0, bounds.upper_bound(g)[0]):
+            adj = bitset.to_words(g.packed(), DEVICE)
+            want = torch.from_numpy(bounds.disjoint_paths_matrix(g, cap=cap))
+            ok, err = same(torch, [kern.paths_matrix(adj, cap, n=g.n).cpu()],
+                           [want])
+            worst = max(worst, err)
+            check(ok, f"paths kernel != host function on {name} at cap "
+                      f"{cap} (max abs err {err})")
+    for n, p, cap in PATHS_GNP:
+        adj = bitset.to_words(graph.gnp(n, p, n).packed(), DEVICE)
+        ok, err = same(torch, [kern.paths_matrix(adj, cap, n=n)],
+                       [kern.paths_matrix_ref(adj, cap, n=n)])
+        worst = max(worst, err)
+        check(ok, f"paths kernel != plain version on G({n}, {p}) at cap "
+                  f"{cap} (max abs err {err})")
+    log(f"kernels: paths bit-identical to the host function on "
+        f"{list(PATHS_NAMES)} at cap 0 and ub, and to paths_matrix_ref on "
+        f"G(n, p) (n, p, cap) in {list(PATHS_GNP)}")
     return worst
 
 
@@ -1036,7 +1077,8 @@ def phase_kernels(torch, np, bitset, graph, components, kern):
             "wavefront_lanes": check_wavefront_lanes(
                 torch, np, bitset, graph, kern["wavefront"]),
             "bloom_lanes": check_bloom_lanes(torch, np, kern["bloom"]),
-            "shard_forms": check_shard_forms(torch, np, bitset, graph, kern)}
+            "shard_forms": check_shard_forms(torch, np, bitset, graph, kern),
+            "paths": check_paths(torch, np, bitset, graph, kern["paths"])}
 
 
 def reset_counts(ops):
@@ -1119,7 +1161,7 @@ def phase_main_paths(torch, graph, solver, golden, ops):
                 f"wall={wall:.3f} s states/s={res.expanded / wall:.0f}")
         counts[path] = read_counts(ops, path)
         by_width[path] = widths(ops)
-        for kernel in needed:
+        for kernel in needed + ("paths",):
             check(counts[path][kernel] > 0,
                   f"path {path}: the {kernel} kernel never launched")
         log(f"path [{path}]: launches {counts[path]}; wavefront launches "
@@ -1626,15 +1668,16 @@ def solve_row(res):
 def kernel_counts():
     """This process's launch counts of every kernel, and the wavefront
     kernel's by lane count and rules."""
-    from repro_torch.kernels import bloom, expand, mmw, wavefront
+    from repro_torch.kernels import bloom, expand, mmw, paths, wavefront
     return {"wavefront": wavefront.ops.LAUNCHES, "mmw": mmw.ops.LAUNCHES,
             "bloom": bloom.ops.LAUNCHES, "expand": expand.ops.LAUNCHES,
+            "paths": paths.ops.LAUNCHES,
             "lanes_flags": lanes_flags(wavefront.ops.LAUNCHES_BY_LANES_FLAGS)}
 
 
 def reset_kernel_counts():
-    from repro_torch.kernels import bloom, expand, mmw, wavefront
-    for mod in (bloom, expand, mmw, wavefront):
+    from repro_torch.kernels import bloom, expand, mmw, paths, wavefront
+    for mod in (bloom, expand, mmw, paths, wavefront):
         mod.ops.LAUNCHES = 0
     wavefront.ops.LAUNCHES_BY_LANES_FLAGS.clear()
 
@@ -2145,7 +2188,44 @@ def phase_times(torch, np, bitset, graph, preprocess, solver, batch,
     if lanes:
         time_lanes(torch, np, bitset, graph, preprocess, solver, batch,
                    components, bloom, dedup, kern, rows)
+    if "paths" in kern:
+        rows["paths"] = time_paths(torch, bitset, graph, kern["paths"])
     return rows
+
+
+def time_paths(torch, bitset, graph, kern):
+    """The paths kernel on PATHS_TIMING: device ms by graph replay, ms per
+    call by CUDA events, the plain version's ms on the card, and the host
+    wall of the form that planning calls (upload, launch and read on the
+    wrapper's stream); the bound counts bytes only, the adjacency read
+    once and the matrix written once."""
+    out = []
+    for name, cap in PATHS_TIMING:
+        g = graph.REGISTRY[name]()
+        adj = bitset.to_words(g.packed(), DEVICE)
+        ok, _ = same(torch, [kern.paths_matrix(adj, cap, n=g.n)],
+                     [kern.paths_matrix_ref(adj, cap, n=g.n)])
+        check(ok, f"paths kernel != plain version on {name} at cap {cap}")
+        dev, ms, plain = kernel_times(
+            torch, lambda: kern.paths_matrix(adj, cap, n=g.n),
+            lambda: kern.paths_matrix_ref(adj, cap, n=g.n))
+        packed = g.packed()
+        calls = 20
+        kern.ops.disjoint_paths_matrix(packed, cap, device=DEVICE)
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            kern.ops.disjoint_paths_matrix(packed, cap, device=DEVICE)
+        plan_ms = (time.perf_counter() - t0) / calls * 1e3
+        nbytes = 4 * adj.numel() + 4 * g.n * g.n
+        bms, by = bound(nbytes, 0)
+        log(f"time paths {name} cap={cap}: n={g.n} W={adj.shape[1]} pairs="
+            f"{g.n * (g.n - 1) // 2}: device {dev:.4f} ms, wrapper {ms:.4f} "
+            f"ms, plain {plain:.4f} ms, planning form {plan_ms:.4f} ms, "
+            f"bound {bms:.6f} ms by {by} ({nbytes} bytes)")
+        out.append(dict(shape=f"{name} cap={cap}", ms=dev, wrapper_ms=ms,
+                        plain_ms=plain, plan_ms=plan_ms, bound_ms=bms,
+                        bound_by=by))
+    return out
 
 
 def lane_timing_inputs(torch, np, bitset, graph, preprocess, solver, batch):
@@ -3341,13 +3421,14 @@ def main(argv=None):
     from repro_torch.kernels import build
     from repro_torch.kernels import expand as expand_kern
     from repro_torch.kernels import mmw as mmw_kern
+    from repro_torch.kernels import paths as paths_kern
     from repro_torch.kernels import wavefront as wavefront_kern
     from repro_torch.launch import twserved
     from repro_torch.serve import client as client_mod
     from repro_torch.serve import twscheduler
 
     kern = {"wavefront": wavefront_kern, "mmw": mmw_kern,
-            "bloom": bloom_kern, "expand": expand_kern}
+            "bloom": bloom_kern, "expand": expand_kern, "paths": paths_kern}
     ops = {name: mod.ops for name, mod in kern.items()}
     t_start = time.perf_counter()
     smi, reports = phase_device(build)
@@ -3471,6 +3552,9 @@ def main(argv=None):
         if name.startswith("bloom"):
             entry.update({key: main_shape[key] for key in (
                 "warm_ms", "scratch_bytes")})
+        if name == "paths":
+            entry["plan_ms"] = main_shape["plan_ms"]
+            entry["variants"] = times[name][1:]
         kernels.append(entry)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"lm_serving": lm}), flush=True)

@@ -310,7 +310,9 @@ class InstanceState:
     ``expanded`` (the sequential path also expands that rung once), and
     the block orders are stitched as ``solve(reconstruct=True)`` does.
     ``recon_kw`` carries the decide arguments of that replay (``cap=None``
-    re-plans per block with ``plan_capacity``).
+    re-plans per block with ``plan_capacity``).  ``plan_kw`` are
+    ``solver.plan_block``'s knobs, ``device`` (where the disjoint-paths
+    matrix is computed) among them.
 
     ``tracker`` is the request's telemetry scope: its rung accounting and
     its planning spans (``preprocess_s``, ``plan_s``) land there.  With
@@ -587,7 +589,7 @@ def solve_many(graphs: Sequence[Graph], *, cap: Optional[int] = None,
                      backend=backend, use_simplicial=use_simplicial,
                      budget_bytes=budget_bytes, device=device)
     plan_kw = dict(use_clique=use_clique, use_paths=use_paths,
-                   start_k=start_k)
+                   start_k=start_k, device=device)
     recon_kw = dict(cap=cap, block=block, mode=mode, use_mmw=use_mmw,
                     m_bits=m_bits, k_hashes=k_hashes, schedule=schedule,
                     backend=backend, use_simplicial=use_simplicial,

@@ -287,7 +287,7 @@ class BlockPlan:
 
 def plan_block(g: Graph, *, use_clique: bool, use_paths: bool,
                start_k: Optional[int], heuristics: int = 0,
-               seed: int = 0, tracker=None) -> BlockPlan:
+               seed: int = 0, tracker=None, device=None) -> BlockPlan:
     """Bounds + deepening schedule for one block.
 
     ``start_k`` moves the ladder's starting rung but never the reported
@@ -297,15 +297,35 @@ def plan_block(g: Graph, *, use_clique: bool, use_paths: bool,
     ``forced``: the skipped rungs are refuted by a minor), a tighter ub
     shortens the ladder with its order.  ``seed`` pins every heuristic,
     so the plan is a pure function of ``(g, knobs)``.  Timed as a
-    ``plan_s`` span on ``tracker`` (``None``: the process root)."""
-    with telemetry.get(tracker).time_block("plan_s"):
+    ``plan_s`` span on ``tracker`` (``None``: the process root).
+
+    ``device`` is where the disjoint-paths matrix is computed
+    (``paths_matrix``): on a CUDA device by the paths kernel, else, or
+    past the kernel's n, on the host.  The matrix is the same either way."""
+    tr = telemetry.get(tracker)
+    with tr.time_block("plan_s"):
         return _plan_block(g, use_clique=use_clique, use_paths=use_paths,
                            start_k=start_k, heuristics=heuristics,
-                           seed=seed)
+                           seed=seed, tracker=tr, device=device)
+
+
+def paths_matrix(g: Graph, cap: int, *, tracker, device=None) -> np.ndarray:
+    """``bounds.disjoint_paths_matrix(g, cap)``, timed as a ``paths_s``
+    span on ``tracker``.  On a CUDA device with n within the kernel's
+    reach it runs the paths kernel (``kernels/paths``) and counts
+    ``paths_kernel_blocks``; otherwise the host function."""
+    with tracker.time_block("paths_s"):
+        if device is not None and torch.device(device).type == "cuda":
+            from repro_torch.kernels.paths import ops as paths_ops
+            if g.n <= paths_ops.max_vertices():
+                tracker.count(paths_kernel_blocks=1)
+                return paths_ops.disjoint_paths_matrix(
+                    g.packed(), cap, device=device, tracker=tracker)
+        return bounds.disjoint_paths_matrix(g, cap=cap)
 
 
 def _plan_block(g: Graph, *, use_clique, use_paths, start_k, heuristics,
-                seed) -> BlockPlan:
+                seed, tracker, device=None) -> BlockPlan:
     if g.n <= 1:
         return BlockPlan(g, [], 0, 0, list(range(g.n)), None, 0, False,
                          SolveResult(0, True, 0, 0, 0, 0.0,
@@ -333,7 +353,8 @@ def _plan_block(g: Graph, *, use_clique, use_paths, start_k, heuristics,
             return BlockPlan(g, clique, lb, ub, ub_order, None, k0, forced,
                              SolveResult(ub, False, lb, ub, 0, 0.0,
                                          ub_order, {}))
-    paths = bounds.disjoint_paths_matrix(g, cap=ub) if use_paths else None
+    paths = (paths_matrix(g, ub, tracker=tracker, device=device)
+             if use_paths else None)
     return BlockPlan(g, clique, lb, ub, ub_order, paths, k0, forced)
 
 
@@ -370,7 +391,7 @@ def solve_block(g: Graph, *, cap: Optional[int], block: int, mode: str,
     tr = telemetry.get(tracker)
     plan = plan_block(g, use_clique=use_clique, use_paths=use_paths,
                       start_k=start_k, heuristics=heuristics, seed=seed,
-                      tracker=tr)
+                      tracker=tr, device=device)
     if plan.result is not None:
         return dataclasses.replace(plan.result, time_sec=time.time() - t0)
     if cap is None:

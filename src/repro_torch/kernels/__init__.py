@@ -11,7 +11,11 @@ mmw/        — standalone MMW bounds from reach rows (repro.kernels.mmw)
 expand/     — deg_S(v) only (repro.kernels.expand)
 bloom/      — packed Bloom filter, rows inserted in order
               (repro.kernels.bloom)
+paths/      — the capped disjoint-paths matrix of block planning, one
+              warp per vertex pair (no TPU kernel: the JAX package
+              computes it on the host, repro.core.bounds)
 
-Each kernel is registered beside its plain PyTorch version in the backend
-registry (``repro_torch.core.backend``) as the ``cuda`` backend.
+Each kernel but paths is registered beside its plain PyTorch version in
+the backend registry (``repro_torch.core.backend``) as the ``cuda``
+backend; ``solver.plan_block`` calls paths directly on a CUDA device.
 """

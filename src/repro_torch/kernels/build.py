@@ -35,7 +35,7 @@ BUILD_DIR = _PKG.parents[2] / "build" / "repro_torch"
 # kernel name -> its source
 SOURCES = {
     name: _PKG / name / "csrc" / f"{name}.cu"
-    for name in ("wavefront", "mmw", "expand", "bloom")
+    for name in ("wavefront", "mmw", "expand", "bloom", "paths")
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -685,7 +685,8 @@ class TwScheduler:
                 inst = batch.InstanceState(
                     req.g, solver_lib, use_preprocess=self.use_preprocess,
                     plan_kw=dict(start_k=req.start_k,
-                                 seed=self._req_seed(req), **self.plan_kw),
+                                 seed=self._req_seed(req),
+                                 device=self.device, **self.plan_kw),
                     reconstruct=req.reconstruct,
                     recon_kw=self._recon_kw(req), tracker=req.tracker)
         except Exception as e:    # noqa: BLE001 — per-request isolation

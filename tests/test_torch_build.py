@@ -17,7 +17,8 @@ INCLUDE = re.compile(r'^\s*#include\s+"([^"]+)"', re.M)
 
 
 def test_every_kernel_source_exists_and_its_includes_are_hashed():
-    assert set(build.SOURCES) == {"wavefront", "mmw", "expand", "bloom"}
+    assert set(build.SOURCES) == {"wavefront", "mmw", "expand", "bloom",
+                                  "paths"}
     hashed = {p.resolve() for p in build.headers()}
     for name, src in build.SOURCES.items():
         assert src.is_file(), src

@@ -13,10 +13,11 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import bitset, components, graph
+from repro_torch.core import bitset, bounds, components, graph, telemetry
 from repro_torch.kernels import bloom as bloom_kernel
 from repro_torch.kernels import expand as expand_kernel
 from repro_torch.kernels import mmw as mmw_kernel
+from repro_torch.kernels import paths as paths_kernel
 from repro_torch.kernels import wavefront as wavefront_kernel
 
 pytestmark = pytest.mark.cuda
@@ -424,11 +425,12 @@ def test_scheduler_serves_two_requests_on_the_card(dev, mode):
     """``TwScheduler(device="cuda")`` serves two requests through the lane
     forms of the kernels (one wavefront launch for both lanes while both
     run) with the results the same scheduler gives on the CPU, events
-    included (their clocked ``timings`` dropped)."""
+    included (their clocked ``timings`` dropped, and the paths kernel's
+    block count, which only the card has: one block each)."""
     from repro_torch.serve.twscheduler import TwScheduler
 
     def serve(device):
-        events = []
+        events, kernel_blocks = [], []
         # a 2^24-bit filter stays nearly empty here, so the row-order
         # kernel and the batch-queried plain op keep the same bits
         s = TwScheduler(lanes=2, block=32, cap=1 << 12, mode=mode,
@@ -440,19 +442,23 @@ def test_scheduler_serves_two_requests_on_the_card(dev, mode):
             if "metrics" in ev and ev["metrics"]:
                 ev["metrics"].pop("timings", None)
                 ev["metrics"].pop("scope", None)
+                kernel_blocks.append(ev["metrics"]["counters"].pop(
+                    "paths_kernel_blocks", 0))
         return [(r.width, r.exact, r.lb, r.ub, r.expanded, r.per_k)
-                for r in (s.done[rid] for rid in rids)], events, s
+                for r in (s.done[rid] for rid in rids)], events, s, \
+            kernel_blocks
 
     lanes = dict(wavefront_kernel.ops.LAUNCHES_BY_LANES)
-    got, got_events, s = serve(dev)
+    got, got_events, s, got_blocks = serve(dev)
     assert s.decide_kw["backend"] == "cuda"
     grew = {n: v - lanes.get(n, 0) for n, v in
             wavefront_kernel.ops.LAUNCHES_BY_LANES.items()
             if v != lanes.get(n, 0)}
     assert grew.get(2, 0) > 0, grew
-    want, want_events, _ = serve("cpu")
+    want, want_events, _, want_blocks = serve("cpu")
     assert got == want
     assert got_events == want_events
+    assert got_blocks == [1, 1] and want_blocks == [0, 0]
     assert [r[0] for r in got] == [4, 10]
 
 
@@ -720,3 +726,131 @@ def test_mmw_rule_where_lb_crosses_k_on_the_last_step(dev):
                                                  device=dev), k, allowed)
             gf = _same_as_plain(args, n, dict(use_mmw=True), (n, k))
             assert not gf.any(), (n, k)
+
+
+# ---------------------------------------------------------------- paths
+
+PATHS_TABLE1 = ["myciel3", "myciel4", "queen5_5", "queen6_6", "petersen",
+                "desargues", "mcgee", "queen7_7", "dyck", "grid6x6"]
+# word edges up to W = 8
+PATHS_EDGE_N = (31, 32, 33, 63, 64, 65, 95, 96, 97, 127, 128, 129, 159,
+                160, 161, 191, 192, 193, 223, 224, 225, 255, 256)
+# the host function takes seconds a graph past this n
+PATHS_HOST_N = 40
+
+
+def _paths_on_card(g, cap, dev):
+    adj = bitset.to_words(g.packed(), dev)
+    return paths_kernel.paths_matrix(adj, cap, n=g.n).cpu().numpy()
+
+
+def _deep_cell_graph():
+    """queen7_7 as the deep benchmark cell relabels it (pool seed 49,
+    position 0)."""
+    g = graph.REGISTRY["queen7_7"]()
+    return g.relabel(np.random.default_rng([49, 0]).permutation(g.n))
+
+
+def _paths_random_cases(count=200, seed=27):
+    """(n, p, seed, cap): small graphs at any density and cap, graphs at
+    the word edges sparse at any cap, and larger dense ones at small caps
+    (what the plain version can check in seconds)."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for i in range(count):
+        kind = i % 4
+        if kind < 2:
+            n = int(rng.randint(2, PATHS_HOST_N + 1))
+            p = rng.uniform(0.05, 0.95)
+            cap = int(rng.choice([0, 1, 2, 4, 8, n, 64]))
+        elif kind == 2:
+            n = int(rng.choice(PATHS_EDGE_N))
+            p = rng.uniform(0.01, 0.08)
+            cap = int(rng.choice([0, 2, 8, 64, 300]))
+        else:
+            n = int(rng.randint(PATHS_HOST_N + 1, 257))
+            p = rng.uniform(0.1, 0.9)
+            cap = int(rng.choice([0, 1, 2, 3]))
+        out.append((n, round(float(p), 3), seed * 1000 + i, cap))
+    return out
+
+
+def test_paths_kernel_matches_host_function_on_table1(dev):
+    for name in PATHS_TABLE1:
+        g = graph.REGISTRY[name]()
+        for cap in (0, 2, bounds.upper_bound(g)[0]):
+            np.testing.assert_array_equal(
+                _paths_on_card(g, cap, dev),
+                bounds.disjoint_paths_matrix(g, cap=cap), err_msg=name)
+
+
+def test_paths_kernel_on_the_deep_cells_relabelling(dev):
+    g = _deep_cell_graph()
+    want = bounds.disjoint_paths_matrix(g, cap=37)
+    np.testing.assert_array_equal(_paths_on_card(g, 37, dev), want)
+    got = paths_kernel.ops.disjoint_paths_matrix(g.packed(), 37, device=dev)
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("part", range(4))
+def test_paths_kernel_on_random_graphs(dev, part):
+    """200 seeded graphs up to n = 256 (W = 8), 50 a part: against the
+    host function up to n = 40, past it against the plain version run on
+    the card (itself held to the host function in test_torch_paths.py)."""
+    for n, p, seed, cap in _paths_random_cases()[part::4]:
+        g = graph.gnp(n, p, seed)
+        got = _paths_on_card(g, cap, dev)
+        if n <= PATHS_HOST_N:
+            want = bounds.disjoint_paths_matrix(g, cap=cap)
+        else:
+            want = paths_kernel.paths_matrix_ref(
+                bitset.to_words(g.packed(), dev), cap, n=n).cpu().numpy()
+        np.testing.assert_array_equal(got, want,
+                                      err_msg=f"n={n} p={p} cap={cap}")
+        np.testing.assert_array_equal(got, got.T)
+        assert not np.diagonal(got).any()
+
+
+def test_paths_kernel_counts_one_launch_and_one_block_per_call(dev):
+    from repro_torch.core import solver
+    g = graph.REGISTRY["queen6_6"]()
+    adj = bitset.to_words(g.packed(), dev)
+    before = paths_kernel.ops.LAUNCHES
+    paths_kernel.paths_matrix(adj, 26, n=g.n)
+    assert paths_kernel.ops.LAUNCHES == before + 1
+    tr = telemetry.Tracker()
+    plan = solver.plan_block(g, use_clique=True, use_paths=True,
+                             start_k=None, tracker=tr, device=dev)
+    assert paths_kernel.ops.LAUNCHES == before + 2
+    assert tr.value("paths_kernel_blocks") == 1
+    timings = tr.snapshot()["timings"]
+    assert timings["paths_s"]["calls"] == timings["read_s"]["calls"] == 1
+    np.testing.assert_array_equal(
+        plan.paths, bounds.disjoint_paths_matrix(g, cap=plan.ub))
+    host = solver.plan_block(g, use_clique=True, use_paths=True,
+                             start_k=None, tracker=telemetry.Tracker())
+    assert (plan.clique, plan.lb, plan.ub, plan.ub_order, plan.k0) == (
+        host.clique, host.lb, host.ub, host.ub_order, host.k0)
+    tr = telemetry.Tracker()
+    res = solver.solve(g, device=dev, tracker=tr)
+    assert res.width == 25 and res.exact
+    assert tr.value("paths_kernel_blocks") == 1
+    assert paths_kernel.ops.LAUNCHES == before + 3
+
+
+def test_paths_kernel_does_not_wait_for_the_solvers_stream(dev):
+    """With long work queued on the current stream, the planning form
+    returns the right matrix before that work ends: its upload, launch and
+    read run on the wrapper's own stream."""
+    g = graph.REGISTRY["queen6_6"]()
+    want = bounds.disjoint_paths_matrix(g, cap=26)
+    paths_kernel.ops.disjoint_paths_matrix(g.packed(), 26, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(4_000_000_000)          # about 2 s of one block
+    queued = torch.cuda.Event()
+    queued.record()
+    got = paths_kernel.ops.disjoint_paths_matrix(g.packed(), 26, device=dev)
+    assert not queued.query()
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got, want)

@@ -1,7 +1,8 @@
 """The port's telemetry spans: ``Tracker.time_block`` as a profiler range on
 the host timeline, the spans at planning, the level loop and every
-device-to-host read (``preprocess_s``, ``plan_s``, ``rung_s``, ``level_s``,
-``read_s``), and the process-wide ``d2h_bytes`` counter.  CPU only; no
+device-to-host read (``preprocess_s``, ``plan_s`` with ``paths_s`` inside
+it, ``rung_s``, ``level_s``, ``read_s``), and the process-wide
+``d2h_bytes`` counter.  CPU only; no
 reference needed."""
 import time
 
@@ -13,7 +14,8 @@ from repro_torch.core import (batch, bitset, engine, graph, shard, solver,
                               telemetry)
 from repro_torch.serve.twscheduler import TwScheduler
 
-SPANS = ("preprocess_s", "plan_s", "rung_s", "level_s", "read_s")
+SPANS = ("preprocess_s", "plan_s", "paths_s", "rung_s", "level_s",
+         "read_s")
 
 
 def _root_delta(fn):
@@ -48,6 +50,7 @@ def test_solve_spans_are_host_ranges_inside_the_profile_window():
             assert e.start_ns() >= start
     assert set(seen) == set(SPANS), seen
     assert seen["preprocess_s"] == 1 and seen["plan_s"] == 1
+    assert seen["paths_s"] == 1
     assert seen["read_s"] == seen["level_s"] + 2 * seen["rung_s"]
 
 

@@ -115,7 +115,9 @@ def clock_offsets_us(records, ranges) -> list:
 
 def split(before: dict, after: dict, answered: int, wall: float) -> dict:
     """Per answer: the window's wall, its ``preprocess_s`` + ``plan_s``,
-    ``level_s`` and ``read_s`` seconds, the reads, and the rest."""
+    ``level_s`` and ``read_s`` seconds, the reads, and the rest; and
+    ``paths_s``, the part of planning spent on the disjoint-paths matrix
+    (its read, on a card, is also one of ``read_s``)."""
     def delta(name, key="total_s"):
         zero = {"calls": 0, "total_s": 0.0}
         return after.get(name, zero)[key] - before.get(name, zero)[key]
@@ -126,6 +128,7 @@ def split(before: dict, after: dict, answered: int, wall: float) -> dict:
                reads=delta("read_s", "calls") / n)
     out["rest_s"] = out["wall_s"] - out["plan_s"] - out["level_s"] \
         - out["read_s"]
+    out["paths_s"] = delta("paths_s") / n
     return out
 
 
